@@ -1,15 +1,12 @@
 #!/usr/bin/env python
 """Headline benchmark: 1M tracked vectors → 256³ grid sibson interpolation.
 
-Prints ONE JSON line to stdout:
-  {"metric": ..., "value": <wall seconds>, "unit": "s", "vs_baseline": <x>}
-
-``vs_baseline`` is the speedup over the reference SciPy path (KDTree k=50 +
-sibson weights, all host cores) measured on this machine:
-217.9 s (see BASELINE.md, tools/measure_reference.py). Parity against that
-same path is checked on a 100k-node subsample (relative L2) and on a 64³
-subvolume FV-divergence comparison; both are reported to stderr and the
-L2 figure rides along in the JSON.
+Runs on one GPU and refuses any other device. Prints ONE JSON line to
+stdout: the median warm wall-clock of three runs, the first call
+(compile included) separately, the device it ran on, and the parity of
+the result against the f64 scipy reference
+(``ptv_interpolation_tpu.reference``) on a 100k-node subsample (relative
+L2) and on a 64³ subvolume (finite-volume divergence).
 """
 
 import json
@@ -21,7 +18,6 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import numpy as np
 
-REFERENCE_SECONDS = 217.9   # scipy path, this host, tools/measure_reference.py
 GRID_N = 256
 N_POINTS = 1_000_000
 K = 50
@@ -42,87 +38,39 @@ def make_problem(seed=0):
     return pts, vals
 
 
-def scipy_reference_values(pts, vals, queries):
-    """The reference sibson math (interpolator.py:83-124), f64."""
-    from scipy.spatial import KDTree
-    tree = KDTree(pts.astype(np.float64))
-    dist, idx = tree.query(queries.astype(np.float64), k=K, workers=-1)
-    eps = 1e-10
-    inv = 1.0 / (dist + eps)
-    w = inv / inv.sum(1, keepdims=True)
-    std = dist.std(1, keepdims=True)
-    w = w * np.exp(-dist / (std + eps))
-    w /= w.sum(1, keepdims=True)
-    return np.einsum("qk,qkc->qc", w, vals[idx].astype(np.float64))
-
-
-def main():
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                          os.path.expanduser("~/.jax_bench_cache"))
-    import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
-
+def make_grid():
     from ptv_interpolation_tpu.grid import create_grid
-    from ptv_interpolation_tpu.interpolate.knn_weights import (
-        sibson_grid_interpolate,
-    )
-    from ptv_interpolation_tpu.ops.stencils import consistent_divergence
-
-    log(f"devices: {jax.devices()}")
-    pts, vals = make_problem()
-    grid = create_grid(((0, GRID_N + 1), (0, GRID_N + 1), (0, GRID_N + 1)),
+    return create_grid(((0, GRID_N + 1), (0, GRID_N + 1), (0, GRID_N + 1)),
                        GRID_N)
 
-    # tau_mode='bisect' finds the exact k-th-distance threshold by monotone
-    # counting (no sort): selection parity is bit-equivalent to exact top-k
-    # (tools/characterize_parity.py: L2 1.65e-6, divergence 2.4e-6 vs the
-    # f64 scipy reference — the f32 floor). Fast mode:
-    # tau_mode='approx', recall_target=0.90 → ~9.8 s (22×) at L2 4.8e-3.
-    kwargs = dict(k=K, tau_mode="bisect", group=8, block=(8, 8, 16))
 
-    log("compiling + warmup run...")
-    t0 = time.time()
-    out = sibson_grid_interpolate(pts, vals, grid, **kwargs)
-    jax.block_until_ready(out)
-    log(f"  first call (cell build + compile + run): {time.time() - t0:.1f}s")
+def parity(out_np, pts, vals, grid, reference):
+    """(relative L2 on a 100k-node subsample, mean-|div| relative error on
+    the central 64³ subvolume) of ``out_np`` against ``reference(pts,
+    vals, queries)``."""
+    from ptv_interpolation_tpu.ops.stencils import consistent_divergence
 
-    times = []
-    for i in range(3):
-        t0 = time.time()
-        out = sibson_grid_interpolate(pts, vals, grid, **kwargs)
-        jax.block_until_ready(out)
-        times.append(time.time() - t0)
-        log(f"  run {i + 1}: {times[-1]:.2f}s")
-    wall = float(np.median(times))
-    out_np = np.asarray(out)
-
-    # ---- parity: 100k-node subsample vs scipy reference ----
     rng = np.random.default_rng(1)
     iz = rng.integers(1, GRID_N - 1, 100_000)
     iy = rng.integers(1, GRID_N - 1, 100_000)
     ix = rng.integers(1, GRID_N - 1, 100_000)
+    # the nodes as the device holds them (f32): the f64 linspace values
+    # are not representable, and evaluating the reference half an ulp away
+    # shows up as a spurious ~1e-6 L2 gap
     queries = np.stack([grid.x[ix], grid.y[iy], grid.z[iz]],
                        axis=-1).astype(np.float32)
-    log("computing scipy reference on 100k-node subsample...")
-    ref = scipy_reference_values(pts, vals, queries)
+    ref = reference(pts, vals, queries)
     ours = out_np[iz, iy, ix]
     l2 = float(np.linalg.norm(ours - ref) / np.linalg.norm(ref))
-    log(f"  relative L2 vs scipy reference: {l2:.2e}")
 
-    # ---- divergence parity on a 64³ subvolume ----
-    # The reference must be evaluated at the MAIN grid's node coordinates
-    # (spacing 256/255, not a fresh linspace over the index range): a
-    # round-1 version built a new 64-node grid here, displacing the
-    # reference samples by up to 0.38 voxels and reporting a spurious
-    # ~8e-2 "divergence gap" that no kernel setting could close.
-    log("divergence parity on a 64³ subvolume...")
-    sl = slice(96, 160)
+    # the reference is evaluated at the MAIN grid's node coordinates
+    # (spacing 256/255): a fresh 64-node linspace would displace the
+    # samples by up to 0.38 voxels and report a spurious divergence gap
+    sl = slice(GRID_N // 2 - 32, GRID_N // 2 + 32)
     gx, gy, gz = (np.asarray(grid.x), np.asarray(grid.y), np.asarray(grid.z))
     ZZ, YY, XX = np.meshgrid(gz[sl], gy[sl], gx[sl], indexing="ij")
-    ref_q = np.stack([XX.ravel(), YY.ravel(), ZZ.ravel()],
-                     axis=-1).astype(np.float64)
-    ref_field = scipy_reference_values(pts, vals, ref_q).reshape(64, 64, 64, 3)
+    ref_q = np.stack([XX.ravel(), YY.ravel(), ZZ.ravel()], axis=-1)
+    ref_field = reference(pts, vals, ref_q).reshape(64, 64, 64, 3)
     ours_sub = out_np[sl, sl, sl]
     mask = np.ones((64, 64, 64), bool)
     div_ours = np.asarray(consistent_divergence(
@@ -132,18 +80,52 @@ def main():
     inner = (slice(2, -2),) * 3
     div_err = float(np.abs(div_ours[inner] - div_ref[inner]).mean()
                     / (np.abs(div_ref[inner]).mean() + 1e-30))
-    log(f"  mean-|div| relative error: {div_err:.2e}")
+    return l2, div_err
 
-    result = {
+
+def main():
+    import jax
+
+    from ptv_interpolation_tpu import reference
+    from ptv_interpolation_tpu.interpolate.knn_weights import (
+        sibson_grid_interpolate,
+    )
+    from ptv_interpolation_tpu.utils import (device_stamp,
+                                             enable_compilation_cache)
+
+    enable_compilation_cache()
+    device = device_stamp("gpu")
+    log(f"devices: {jax.devices()}")
+    pts, vals = make_problem()
+    grid = make_grid()
+    kwargs = dict(k=K, tau_mode="bisect", block=(8, 8, 16))
+
+    log("compiling + warmup run...")
+    t0 = time.time()
+    out = sibson_grid_interpolate(pts, vals, grid, **kwargs)
+    jax.block_until_ready(out)
+    first = time.time() - t0
+    log(f"  first call (cell build + compile + run): {first:.1f}s")
+
+    times = []
+    for i in range(3):
+        t0 = time.time()
+        out = sibson_grid_interpolate(pts, vals, grid, **kwargs)
+        jax.block_until_ready(out)
+        times.append(time.time() - t0)
+        log(f"  run {i + 1}: {times[-1]:.3f}s")
+    wall = float(np.median(times))
+
+    log("parity against the f64 scipy reference...")
+    l2, div_err = parity(np.asarray(out), pts, vals, grid,
+                         lambda p, v, q: reference.sibson_values(p, v, q, K))
+    log(f"  relative L2: {l2:.2e}   mean-|div| relative error: {div_err:.2e}")
+
+    print(json.dumps({
         "metric": "1M tracks -> 256^3 sibson(k=50) interpolation wall-clock",
-        "value": round(wall, 3),
-        "unit": "s",
-        "vs_baseline": round(REFERENCE_SECONDS / wall, 2),
-        "l2_parity": float(f"{l2:.2e}"),
-        "divergence_parity": float(f"{div_err:.2e}"),
-        "reference_seconds": REFERENCE_SECONDS,
-    }
-    print(json.dumps(result), flush=True)
+        "value": wall, "unit": "s", "first_call_s": first,
+        "l2_parity": l2, "divergence_parity": div_err, "device": device,
+    }), flush=True)
 
 
 if __name__ == "__main__":

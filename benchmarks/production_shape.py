@@ -7,7 +7,7 @@ a 657×657×656 scan cropped to 322×337×486 and downscaled 2× → a
 k=30/thr 4/vmax 5, boundary particles stride 50/thickness 2, sibson
 k=50, variational cleaning λ=200). The reference runs this on a
 workstation via scipy + a 4-process pool; this script runs the same
-configuration on one TPU chip over a synthetic porous problem of the
+configuration on one GPU over a synthetic porous problem of the
 same shape and density and prints one JSON line with the stage walls.
 """
 
@@ -20,15 +20,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.jax_bench_cache"))
 
 
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
+    from ptv_interpolation_tpu.utils import enable_compilation_cache
+    enable_compilation_cache()
+    from ptv_interpolation_tpu.utils import device_stamp
+    device = device_stamp("gpu")
     from ptv_interpolation_tpu.filtering import FilterConfig, apply_filters
     from ptv_interpolation_tpu.grid import (
         create_grid, extract_boundary_particles, sample_mask_on_grid)
@@ -107,6 +107,7 @@ def main():
         "converged": bool(res.converged),
         "div_reduction_x": round(float(res.mean_abs_div_initial
                                        / res.mean_abs_div_final), 2),
+        "device": device,
     }), flush=True)
 
 

@@ -26,8 +26,12 @@ def log(msg):
     print(msg, file=sys.stderr, flush=True)
 
 
+DEVICE = {}
+
+
 def emit(name, wall, extra=None):
-    rec = {"scenario": name, "value": float(f"{wall:.4g}"), "unit": "s"}
+    rec = {"scenario": name, "value": float(f"{wall:.4g}"), "unit": "s",
+           "device": DEVICE}
     if extra:
         rec.update(extra)
     print(json.dumps(rec), flush=True)
@@ -244,11 +248,10 @@ def scenario_5(n_points=1_000_000, n=256):
 
 
 def main():
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                          os.path.expanduser("~/.jax_bench_cache"))
-    import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
+    from ptv_interpolation_tpu.utils import (device_stamp,
+                                             enable_compilation_cache)
+    enable_compilation_cache()
+    DEVICE.update(device_stamp("gpu"))
     which = [int(a) for a in sys.argv[1:]] or [1, 2, 3, 4, 5]
     scenarios = {1: scenario_1, 2: scenario_2, 3: scenario_3,
                  4: scenario_4, 5: scenario_5}

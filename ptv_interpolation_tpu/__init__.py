@@ -1,11 +1,11 @@
-"""ptv_interpolation_tpu — a TPU-native scattered-data interpolation framework.
+"""ptv_interpolation_tpu — a JAX scattered-data interpolation framework for GPUs.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of
 ``tombultreys/ptv_interpolation`` (3D Particle Tracking Velocimetry
 post-processing for porous media): scattered-vector loading & filtering,
 six interpolation methods onto regular grids, divergence-free cleaning,
 pressure/permeability/drag analysis, and interactive visualization —
-designed SPMD-first for TPU meshes rather than translated from the
+designed SPMD-first for device meshes rather than translated from the
 reference's scipy/process-pool architecture.
 
 Layer map (bottom-up):

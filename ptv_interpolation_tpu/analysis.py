@@ -259,4 +259,5 @@ def compute_permeability_from_pressure(u, v, w, pressure, viscosity,
     dp_dz, dp_dy, dp_dx = gradient(pressure, dx, dy, dz)
     g = jnp.stack([jnp.mean(dp_dx), jnp.mean(dp_dy), jnp.mean(dp_dz)])
     g2 = jnp.sum(g * g)
-    return jnp.where(g2 == 0, 0.0, -viscosity * jnp.dot(u0, g) / g2)
+    return jnp.where(g2 == 0, 0.0, -viscosity * jnp.dot(
+        u0, g, precision=jax.lax.Precision.HIGHEST) / g2)

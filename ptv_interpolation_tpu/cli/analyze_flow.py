@@ -106,6 +106,8 @@ def main(argv=None):
         if rc is not None:
             return rc
         print("daemon unavailable; running inline", file=sys.stderr)
+    if daemon.inline_blocked():
+        return 1
     from ptv_interpolation_tpu.utils import enable_compilation_cache
     enable_compilation_cache()
     basename = os.path.splitext(os.path.basename(args.input))[0]

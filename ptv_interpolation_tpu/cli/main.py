@@ -103,6 +103,8 @@ def main(argv=None):
         if rc is not None:
             return rc
         print("daemon unavailable; running inline", file=sys.stderr)
+    if daemon.inline_blocked():
+        return 1
     from ptv_interpolation_tpu.utils import enable_compilation_cache
     enable_compilation_cache()
     config = PipelineConfig(

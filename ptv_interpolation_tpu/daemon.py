@@ -1,17 +1,20 @@
 """Persistent serving daemon: keep one warm process holding the JAX client.
 
 Why this exists: a CLI-shaped tool pays a fresh-process "first call" cost on
-every invocation — Python imports, the PJRT handshake, per-program tracing,
-and (the dominant term on this rig) reading and loading the cached
-executables of the large Pallas programs back onto the TPU.  The reference
-has the same shape (`/root/reference/main.py` is a one-shot script) but its
-scipy path has no compile step to amortize; ours does, so the TPU-native
-answer is a resident server: the first request pays the warm-up once, every
-later request runs at warm-process speed (~2.7 s for the 1M→256³ headline
-instead of 40–90 s+).
+every invocation — Python imports, device initialization, per-program
+tracing, and compiling (or loading from the persistent cache) every
+program. The reference has the same shape (`/root/reference/main.py` is a
+one-shot script) but its scipy path has no compile step to amortize; ours
+does, so the answer is a resident server: the first request pays the
+warm-up once, every later request runs at warm-process speed.
+
+One process per card: a JAX process reserves most of the device's memory
+when it starts, so a second one on the same card fails for want of memory.
+The server therefore records its pid beside its socket, and the CLIs refuse
+to run inline while a live server holds the device (:func:`inline_blocked`).
 
 Protocol (newline-delimited JSON over a Unix socket, one request per
-connection, served strictly serially — ONE process owns the TPU client):
+connection, served strictly serially — ONE process owns the device):
 
   client → server: {"entry": "interpolate"|"analyze", "argv": [...],
                     "cwd": "/abs/path"}
@@ -42,8 +45,43 @@ _IDLE_DEFAULT = 1800.0
 
 
 def socket_path() -> str:
-    d = os.environ.get("PTV_DAEMON_DIR") or f"/tmp/ptv-daemon-{os.getuid()}"
+    import tempfile
+    d = (os.environ.get("PTV_DAEMON_DIR")
+         or os.path.join(tempfile.gettempdir(), f"ptv-daemon-{os.getuid()}"))
     return os.path.join(d, "daemon.sock")
+
+
+def _pid_path(path: str) -> str:
+    return path + ".pid"
+
+
+def holder_pid(path: str | None = None) -> int | None:
+    """Pid of a live server that owns the socket ``path``, else None."""
+    try:
+        with open(_pid_path(path or socket_path())) as f:
+            pid = int(f.read().strip())
+    except (OSError, ValueError):
+        return None
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return None
+    except PermissionError:
+        pass                      # alive, owned by another user
+    return pid
+
+
+def inline_blocked() -> bool:
+    """True (after saying why on stderr) when a live server holds the
+    device, so running a job in this process would open it a second time."""
+    if os.environ.get("PTV_IN_DAEMON"):
+        return False
+    pid = holder_pid()
+    if pid is None:
+        return False
+    print(f"ptv-daemon (pid {pid}) holds the device; run through it with "
+          f"--daemon, or stop it first (ptv-daemon stop)", file=sys.stderr)
+    return True
 
 
 def _ensure_sock_dir(path: str) -> None:
@@ -107,6 +145,8 @@ def serve(path: str | None = None, idle_s: float | None = None) -> None:
     from ptv_interpolation_tpu.utils import enable_compilation_cache
     enable_compilation_cache()
 
+    with open(_pid_path(path), "w") as f:
+        f.write(str(os.getpid()))
     srv = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
     srv.bind(path)
     os.chmod(path, 0o600)
@@ -131,8 +171,9 @@ def serve(path: str | None = None, idle_s: float | None = None) -> None:
                 return
     finally:
         srv.close()
-        with contextlib.suppress(FileNotFoundError):
-            os.unlink(path)
+        for p in (path, _pid_path(path)):
+            with contextlib.suppress(FileNotFoundError):
+                os.unlink(p)
 
 
 def _handle(conn: socket.socket) -> bool:
@@ -221,6 +262,9 @@ def _request(sock: socket.socket, req: dict,
 
 
 def _spawn(path: str, wait_s: float = 120.0) -> bool:
+    """Start a server and wait for it to answer. A server that has not
+    answered within ``wait_s`` is killed: left running, it would take the
+    device while the caller falls back to running inline."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "ptv_interpolation_tpu.daemon", "serve", path],
         stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
@@ -235,6 +279,11 @@ def _spawn(path: str, wait_s: float = 120.0) -> bool:
                 if _request(s, {"entry": "ping"}, echo=False) == 0:
                     return True
         time.sleep(0.1)
+    proc.kill()
+    proc.wait()
+    for p in (path, _pid_path(path)):
+        with contextlib.suppress(FileNotFoundError):
+            os.unlink(p)
     return False
 
 

@@ -6,7 +6,7 @@ Port of `/root/reference/filtering.py`:
   outlier when its speed deviates from the local (k-neighbor) median by more
   than ``threshold`` MAD units (ε = 1e-6 guards uniform regions).
 
-TPU design: the filter *decisions* (a boolean keep mask) are computed
+Design: the filter *decisions* (a boolean keep mask) are computed
 entirely on device with fixed shapes — the kNN query reuses the same
 neighbor primitive as interpolation, and median/MAD run fused in the tile
 loop. The variable-length compaction (dropping rows) is a host-side
@@ -154,34 +154,36 @@ def _host_exact_mad_decide(pts, speed, idx, k, threshold):
 
 
 def knn_mad_mask_scatter(points, values, k: int = 25, threshold: float = 3.0,
-                         **kwargs):
+                         interpret: bool = False, **kwargs):
     """At-scale kNN-MAD decisions.
 
-    On TPU the default route is the fused panel kernel
-    (``ops/fused_mad.py``): every statistic the filter needs (k-th
-    distance, median, MAD) is an order statistic, found by monotone
-    counting over a VMEM-resident candidate panel — no sort, no
-    selection, no neighbor gathers (measured ~6× faster than the
-    selection path at 500k points). Queries the panel could not certify
-    (domain corners, density holes — flagged via the coverage sentinel)
-    are re-decided exactly through the selection-based scatter kernel.
+    On the GPU the default route is the fused panel kernel
+    (``ops/fused_mad.py``, chosen by ``ops.kernels.select_kernels``):
+    every statistic the filter needs (k-th distance, median, MAD) is an
+    order statistic, found by monotone counting over a streamed candidate
+    panel — no sort, no selection, no neighbor gathers. Queries the panel
+    could not certify (domain corners, density holes — flagged via the
+    coverage sentinel) are re-decided exactly through the selection-based
+    scatter kernel.
 
-    Elsewhere (or when the cloud's density blows the VMEM budget, or a
-    caller pins selection behavior via ``kwargs``), the scatter-block
-    kernel serves: O(k) candidates per point via ``approx_min_k``; even
-    at ``recall_target=0.95`` decisions match ``exact_topk=True`` on
-    ≥99.9% of points (tests/test_filtering.py), shipped default 0.99."""
-    import jax
-
+    On the CPU (or when the cloud's density exceeds the kernel's capacity
+    bounds, or a caller pins selection behavior via ``kwargs``), the
+    scatter-block kernel serves: O(k) candidates per point via
+    ``approx_min_k``; even at ``recall_target=0.95`` decisions match
+    ``exact_topk=True`` on ≥99.9% of points (tests/test_filtering.py),
+    shipped default 0.99. ``interpret=True`` runs the fused kernel in the
+    Pallas interpreter."""
     from ptv_interpolation_tpu.ops.grid_knn import scatter_knn_apply
+    from ptv_interpolation_tpu.ops.kernels import select_kernels
 
     pts = np.asarray(points, np.float32)
     v = np.asarray(values, np.float32)
     speed = np.sqrt((v * v).sum(axis=-1, keepdims=True))
 
-    if jax.default_backend() == "tpu" and not kwargs:
+    if select_kernels(interpret) == "triton" and not kwargs:
         from ptv_interpolation_tpu.ops.fused_mad import fused_mad_filter
-        res = fused_mad_filter(pts, speed[:, 0], int(k), float(threshold))
+        res = fused_mad_filter(pts, speed[:, 0], int(k), float(threshold),
+                               interpret=interpret)
         if res is not None:
             keep, covered, radius, _ = res
             unc = ~covered
@@ -232,8 +234,8 @@ def remove_outliers_knn(cloud: PointCloud, k: int = 25, threshold: float = 3.0,
             # pathologically clustered cloud: fall back to the generic
             # cell-list path (its per-cell capacity is not bound by the
             # scatter kernel's 1024-row padding) — but keep the candidate
-            # panel bounded: the (2r+1)³·cap gather pads to 128 lanes on
-            # TPU, so an unbounded cap OOMs before it is slow. When even
+            # panel bounded: the (2r+1)³·cap gather grows with the global
+            # max cap, so an unbounded cap OOMs before it is slow. When even
             # the cell list cannot bound the panel (cap is a global max),
             # the streamed brute-force tile loop is the exact, memory-
             # bounded answer — slow at this size, but these clouds are

@@ -90,11 +90,13 @@ def _barycentric_eval(transform, simplices, values, queries, simplex_idx,
     safe = jnp.clip(simplex_idx, 0, None)
     Tinv = transform[safe, :3, :]              # (Q, 3, 3)
     r = transform[safe, 3, :]                  # (Q, 3)
-    b = jnp.einsum("qij,qj->qi", Tinv, queries - r)      # (Q, 3)
+    b = jnp.einsum("qij,qj->qi", Tinv, queries - r,
+                   precision=jax.lax.Precision.HIGHEST)    # (Q, 3)
     w = jnp.concatenate([b, 1.0 - jnp.sum(b, axis=1, keepdims=True)], axis=1)
     verts = simplices[safe]                    # (Q, 4)
     vals = values[verts]                       # (Q, 4, C)
-    out = jnp.einsum("qk,qkc->qc", w, vals)
+    out = jnp.einsum("qk,qkc->qc", w, vals,
+                     precision=jax.lax.Precision.HIGHEST)
     inside = (simplex_idx >= 0)[:, None]
     return jnp.where(inside, out, fill_value)
 

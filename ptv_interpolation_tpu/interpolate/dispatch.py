@@ -78,9 +78,9 @@ def interpolate_values(points, values, queries, method: str = "linear",
             # bound the (2r+1)³·cap candidate panel: on clustered clouds
             # (e.g. boundary particles dense on an interface) the auto
             # cell size can hold thousands of points per cell, and the
-            # per-tile candidate gather pads its last dim to 128 lanes
-            # under the TPU (8,128) tiling — an unbounded panel OOM-ed a
-            # v5e chip at 105k candidates. `cap` is a global max, so cell
+            # per-tile candidate panel grows with it without bound (105k
+            # candidates per query exhausted device memory). `cap` is a
+            # global max, so cell
             # refinement cannot bound it for genuinely clustered clouds;
             # the exact answer at this path's moderate N is the streamed
             # brute-force tile loop (memory O(tile·chunk), no panel).
@@ -142,11 +142,10 @@ def interpolate_values(points, values, queries, method: str = "linear",
     raise ValueError(f"unknown interpolation method {method!r}")
 
 
-# Q·N above which the block kernel wins. Measured crossover (TPU v5e,
-# warm): generic wins at 2^27 (0.19 s vs 0.43 s), the fused grid kernel
-# wins ≥2^31 (0.74 s vs 2.3 s at 8k pts → 64³, growing with size); 2^29
-# splits the gap. The old 2^33 left scenario-1-class problems (2^31) on
-# the generic path at 3× the cost.
+# Q·N above which the block kernel serves instead of the generic per-query
+# kNN path: the block kernel's shared candidate gathers pay off once the
+# problem is large, the generic path's lower fixed cost wins below. The
+# crossover has not been measured on a GPU (PERF.md, Open questions).
 _GRID_FASTPATH_MIN_WORK = 2 ** 29
 
 
@@ -204,7 +203,7 @@ def interpolate_field(points, values, grid: Grid, method: str = "linear",
     if method == "linear":
         # grid targets use the fastest measured exact evaluator (scipy's
         # walk+blend; Qhull triangulation dominates the wall either way —
-        # see interpolate/delaunay.py and BASELINE.md "linear")
+        # see interpolate/delaunay.py)
         from ptv_interpolation_tpu.interpolate.delaunay import (
             linear_grid_interpolate)
         out = linear_grid_interpolate(points, values, grid, fill_value=0.0,

@@ -1,6 +1,6 @@
-"""Global (all-points) RBF interpolation with a dense MXU solve.
+"""Global (all-points) RBF interpolation with a dense device solve.
 
-TPU-native equivalent of ``scipy.interpolate.RBFInterpolator`` without
+Device equivalent of ``scipy.interpolate.RBFInterpolator`` without
 ``neighbors`` — one global system through every particle:
 
     [K + λI  P] [c]   [f]
@@ -8,13 +8,14 @@ TPU-native equivalent of ``scipy.interpolate.RBFInterpolator`` without
 
 * Positive-definite kernels (gaussian / inverse-multiquadric /
   inverse-quadratic) with ``degree=-1``: solved by **dense Cholesky** of
-  ``K + λI`` — the BASELINE config-2 path ("Global Gaussian-RBF with dense
-  Cholesky"), a pure MXU factorization.
+  ``K + λI`` — scenario 2 ("Global Gaussian-RBF with dense Cholesky",
+  PERF.md).
 * Conditionally-PD kernels with polynomial tail: batched LU
   (``jnp.linalg.solve``) on the saddle-point system.
 
-Evaluation is a tiled ``(Q_tile, N)`` kernel matrix × coefficient matmul —
-all MXU. Coordinates are shifted/scaled as scipy does for conditioning.
+Evaluation is a tiled ``(Q_tile, N)`` kernel matrix × coefficient matmul
+at ``Precision.HIGHEST``. Coordinates are shifted/scaled as scipy does for
+conditioning.
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ class GlobalRBF:
 def rbf_global_fit(points, values, kernel: str = "thin_plate_spline",
                    smoothing: float = 0.0, epsilon: float = 1.0,
                    degree: int | None = None) -> GlobalRBF:
-    """Fit the global system. O(N²) memory, O(N³) MXU flops — intended for
+    """Fit the global system. O(N²) memory, O(N³) flops — intended for
     N ≲ 3·10⁴ (beyond that, use the local/kNN path like the reference does)."""
     x = jnp.asarray(points, jnp.float32)
     f = jnp.asarray(values, jnp.float32)
@@ -81,7 +82,7 @@ def rbf_global_fit(points, values, kernel: str = "thin_plate_spline",
     K = kernel_value(kernel, epsilon * r) + smoothing * jnp.eye(n)
 
     if m == 0 and kernel in PD_KERNELS:
-        # SPD path: one Cholesky factorization on the MXU
+        # SPD path: one Cholesky factorization on the device
         jitter = 1e-6 * jnp.max(jnp.abs(K))
         L = jnp.linalg.cholesky(K + jitter * jnp.eye(n))
         c = jax.scipy.linalg.cho_solve((L, True), f)
@@ -101,7 +102,7 @@ def rbf_global_fit(points, values, kernel: str = "thin_plate_spline",
 def rbf_global_evaluate(model: GlobalRBF, queries, query_tile: int = 1024,
                         progress=None):
     """Evaluate a fitted model at (Q, 3) queries → (Q, C). Tiled (T, N)
-    kernel blocks keep HBM bounded while the matmuls ride the MXU.
+    kernel blocks keep device memory bounded.
     ``progress`` (host callback ``fn(done, total)``) switches to host-level
     macro-batches with per-batch reporting."""
     if progress is None:

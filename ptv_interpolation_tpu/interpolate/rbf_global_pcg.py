@@ -1,11 +1,11 @@
 """Global RBF at scale: matrix-free projected PCG (no O(N²) storage).
 
-TPU-native equivalent of ``scipy.interpolate.RBFInterpolator`` with
+Device equivalent of ``scipy.interpolate.RBFInterpolator`` with
 ``neighbors=None`` (`/root/reference/interpolator.py:162-167`) beyond the
 dense-Cholesky capacity of :mod:`rbf_global` (N ≲ 3·10⁴). The full kernel
 matrix is never materialized: each CG matvec streams tiled ``(T, N)``
-kernel panels through the MXU, so memory is O(N·T) and the N ~ 10⁵ regime
-fits a single chip.
+kernel panels, so memory is O(N·T) and the N ~ 10⁵ regime fits a single
+device.
 
 Solver design
 -------------
@@ -26,7 +26,7 @@ projection (plain PCG).
 Preconditioner: **block-Jacobi over Morton-ordered points** — points are
 sorted along a Z-order curve so consecutive blocks are spatially coherent,
 each (B, B) diagonal block of K + λI is Cholesky-factored batched (one
-vmapped MXU factorization), and the preconditioner solve is a batched
+vmapped factorization), and the preconditioner solve is a batched
 ``cho_solve``. This is the classical domain-decomposition preconditioner
 for RBF systems and typically cuts iteration counts by ~an order of
 magnitude on clustered clouds.
@@ -87,7 +87,9 @@ def _pcg_solve(xs, f, valid, Q, pre_chol, kernel: str, epsilon: float,
     def project(v):
         if m == 0:
             return jnp.where(vcol, v, 0.0)
-        return jnp.where(vcol, v - Q @ (Q.T @ v), 0.0)
+        hi = jax.lax.Precision.HIGHEST
+        return jnp.where(vcol, v - jnp.matmul(
+            Q, jnp.matmul(Q.T, v, precision=hi), precision=hi), 0.0)
 
     def precond(r):
         z = jax.vmap(lambda L, b: jax.scipy.linalg.cho_solve((L, True), b))(
@@ -224,7 +226,9 @@ def rbf_global_fit_pcg(points, values, kernel: str = "thin_plate_spline",
 
     if m > 0:
         # R d = Qᵀ(f − (K+λI)c), solved in f64 on host (m ≤ 10)
-        rhs = np.asarray(Q.T @ (jnp.asarray(f_pad) - Kc)).astype(np.float64)
+        rhs = np.asarray(jnp.matmul(
+            Q.T, jnp.asarray(f_pad) - Kc,
+            precision=jax.lax.Precision.HIGHEST)).astype(np.float64)
         d = np.linalg.solve(Rm, rhs).astype(np.float32)
     else:
         d = np.zeros((0, f_np.shape[1]), np.float32)

@@ -1,16 +1,16 @@
 """Local (k-nearest-neighbor) RBF interpolation.
 
-TPU-native equivalent of ``scipy.interpolate.RBFInterpolator(..., neighbors=k)``
+Device equivalent of ``scipy.interpolate.RBFInterpolator(..., neighbors=k)``
 (reference `/root/reference/interpolator.py:157-195`): for every evaluation
 point, fit an RBF + polynomial model through its ``k`` nearest particles and
 evaluate it there.
 
 Where scipy groups evaluation points that share a neighbor set and solves
 each group's system once on the CPU, here every query gets its own local
-``(k+m)×(k+m)`` system and the systems are solved as one big *batched* LU —
-thousands of small dense solves are exactly the shape a TPU eats (vmapped
-``linalg.solve`` lowers to batched MXU kernels, and no group bookkeeping /
-dynamic shapes are needed). The two formulations agree wherever the local
+``(k+m)×(k+m)`` system and the systems are solved as one big *batched*
+elimination — thousands of small dense solves in one program, with no
+group bookkeeping or dynamic shapes. The two formulations agree wherever
+the local
 model is well-posed; the per-query fit is the textbook "moving RBF" method.
 
 Conditioning: each local system is centered on the query and scaled by the
@@ -82,10 +82,11 @@ def _local_rbf_solve_tile(q_tile, sq, xi, fi, valid, k, kernel, smoothing,
     rq = jnp.sqrt(jnp.maximum(sq_valid, 0.0)) / scale[:, :, 0]
     Kq = kernel_value(kernel, epsilon * rq)               # (T, k)
     Kq = jnp.where(valid, Kq, 0.0)
-    out = jnp.einsum("tk,tkc->tc", Kq, c)
+    hi = jax.lax.Precision.HIGHEST
+    out = jnp.einsum("tk,tkc->tc", Kq, c, precision=hi)
     if m > 0:
         Pq = polynomial_basis(jnp.zeros_like(q_tile), degree)  # (T, m)
-        out = out + jnp.einsum("tm,tmc->tc", Pq, d)
+        out = out + jnp.einsum("tm,tmc->tc", Pq, d, precision=hi)
     return out
 
 
@@ -128,13 +129,11 @@ def _gauss_solve_t(A, rhs):
     ``rhs`` (m, C, B) → (m, C, B). Gauss-Jordan with partial pivoting,
     vectorized over the lane (batch) axis.
 
-    Why not ``jnp.linalg.solve``: TPU's LU custom call runs at ~7 µs per
-    24×24 system regardless of batch size (measured 0.9 s per 131k
-    batch — 14 s for a 128³ grid of local RBF fits). Full-reduction
-    elimination is m·m·(m+C)·B fused VPU mults — ~0.3 s for the same
-    work — and partial pivoting keeps it stable on the saddle systems
-    (the polynomial block has a zero diagonal, so pivot-free elimination
-    would divide by ~λ≈1e-6·|K|)."""
+    Full-reduction elimination is m·m·(m+C)·B fused elementwise
+    multiplies with the batch on the fast axis — one fused program, no
+    per-system library call — and partial pivoting keeps it stable on the
+    saddle systems (the polynomial block has a zero diagonal, so
+    pivot-free elimination would divide by ~λ≈1e-6·|K|)."""
     m = A.shape[0]
     M = jnp.concatenate([A, rhs], axis=1)            # (m, m+C, B)
     rows = jnp.arange(m)
@@ -170,13 +169,10 @@ def _rbf_solve_flat(points, values, queries, sq, idx, k: int, kernel: str,
     evaluate the local models as ONE flat batched computation.
 
     All small per-neighborhood tensors are laid out batch-minor
-    ((k, T), (k, k, T), (m, k, T)): with the batch on the lane axis
-    nothing pads to the (8, 128) tile. The naive (T, k, 3) / (T, k, k)
-    layouts pad their minor dims 3→128 / k→128 — running the same math
-    inside the block kernel's consumer cost ~15 s at 128³/k=20 where
-    this formulation costs ~1.5 s. The (k+m)² systems are solved in the
-    same batch-minor layout by :func:`_gauss_solve_t` (see its docstring
-    for why TPU's batched-LU custom call is not used)."""
+    ((k, T), (k, k, T), (m, k, T)): with the batch on the fastest axis
+    every elementwise step is one wide, contiguous operation instead of
+    many tiny (k, 3) / (k, k) ones. The (k+m)² systems are solved in the
+    same batch-minor layout by :func:`_gauss_solve_t`."""
     m = n_poly_terms(degree)
     Q = queries.shape[0]
     n_pad = (Q + chunk - 1) // chunk * chunk
@@ -256,16 +252,16 @@ def rbf_local_grid_interpolate(points, values, grid, k: int = 20,
                                smoothing: float = 0.0, epsilon: float = 1.0,
                                degree: int | None = None, **kwargs):
     """Local kNN-RBF onto a :class:`Grid` — the at-scale path for
-    BASELINE config 3, in two stages:
+    scenario 3 (PERF.md), in two stages:
 
     1. the block-centric grid kernel selects each node's k-set (squared
        distances + original point ids riding in an extra value channel);
     2. :func:`_rbf_solve_flat` fits and evaluates every local model in
        one flat batch-minor computation.
 
-    Running the fit inside the block kernel's consumer (the previous
-    design) hit TPU tile padding on every (B, k, 3)/(B, k, k)
-    intermediate — 20 s at 128³/k=20 vs ~6.5 s for the two-stage form."""
+    Running the fit inside the block kernel's consumer instead would
+    build small (B, k, 3)/(B, k, k) intermediates per block; the
+    two-stage form keeps the fit batch-minor."""
     import numpy as np
 
     from ptv_interpolation_tpu.ops.grid_knn import grid_knn_apply
@@ -280,8 +276,7 @@ def rbf_local_grid_interpolate(points, values, grid, k: int = 20,
     vals_aug = np.concatenate(
         [vals, np.arange(n, dtype=np.float32)[:, None]], axis=1)
     consume = _index_consume(int(k), n_ch)
-    # flatter z-blocks halve the selection wall at k≈20 panels (measured
-    # 3.3 s vs 6.5 s for (8,8,16)/(8,8,8) at 500k→128³ on v5e)
+    # flatter z-blocks keep the k≈20 selection panels narrow
     kwargs.setdefault("block", (4, 8, 16))
     out = grid_knn_apply(points, vals_aug, grid, k, consume, out_dim=2 * k,
                          needs_positions=False, **kwargs)

@@ -3,8 +3,8 @@
 The reference's checkpointing is file-level: the NPZ field contract joins
 its two pipelines (`/root/reference/main.py:221-226`, SURVEY §5). That
 contract is kept (`io/npz.py`) as the portable artifact; this module adds
-the TPU-native layer on top — orbax array checkpoints that preserve device
-shardings, so a multi-chip run can resume without gathering fields to one
+a device-native layer on top — orbax array checkpoints that preserve device
+shardings, so a multi-device run can resume without gathering fields to one
 host. Falls back with a clear error when orbax isn't installed.
 """
 

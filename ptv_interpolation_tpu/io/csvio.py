@@ -4,10 +4,10 @@ Mirrors the reference loader contract (`/root/reference/interpolator.py:9-26`):
 columns ``x,y,z,u,v,w`` with ``vx/vy/vz`` accepted as aliases; any violation
 raises ``IOError``. The canonical in-memory representation here is a
 :class:`PointCloud` (struct-of-arrays, float32) rather than a DataFrame —
-fixed-dtype flat arrays are what the TPU path consumes.
+fixed-dtype flat arrays are what the device path consumes.
 
 A native C++ fast-path parser (``native/fastcsv``) is used automatically for
-large files when its shared library has been built; the pandas path is the
+large files when its shared library has been built; a numpy parser is the
 portable fallback.
 """
 
@@ -91,19 +91,24 @@ def load_ptv_data(filepath: str) -> PointCloud:
         cloud = _load_native(filepath)
         if cloud is not None:
             return cloud
-        import pandas as pd
-        df = pd.read_csv(filepath)
-        df = df.rename(columns=_ALIASES)
-        if not set(_REQUIRED).issubset(df.columns):
-            raise ValueError(f"CSV must contain columns: {set(_REQUIRED)}")
-        return PointCloud(df[["x", "y", "z"]].to_numpy(np.float32),
-                          df[["u", "v", "w"]].to_numpy(np.float32))
+        with open(filepath) as f:
+            header = f.readline()
+            names = [_ALIASES.get(c, c) for c in
+                     (h.strip().strip('"').strip("'")
+                      for h in header.split(","))]
+            if not set(_REQUIRED).issubset(names):
+                raise ValueError(f"CSV must contain columns: {set(_REQUIRED)}")
+            cols = [names.index(c) for c in _REQUIRED]
+            data = np.loadtxt(f, delimiter=",", usecols=cols, ndmin=2,
+                              dtype=np.float64)
+        data = data.astype(np.float32)
+        return PointCloud(data[:, :3], data[:, 3:])
     except Exception as e:  # noqa: BLE001 - reference wraps all errors in IOError
         raise IOError(f"Error reading {filepath}: {e}")
 
 
 def _load_native(filepath: str):
-    """Try the C++ fast parser; return None to fall back to pandas."""
+    """Try the C++ fast parser; return None to fall back to numpy."""
     try:
         from ptv_interpolation_tpu.io import fastcsv
         return fastcsv.load(filepath)

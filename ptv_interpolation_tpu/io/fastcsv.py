@@ -1,7 +1,7 @@
 """ctypes binding for the native CSV parser (native/fastcsv.cpp).
 
 Falls back silently when the shared library hasn't been built — callers
-(`csvio.load_ptv_data`) treat any failure here as "use the pandas path".
+(`csvio.load_ptv_data`) treat any failure here as "use the numpy path".
 Build with ``native/build.sh``.
 """
 
@@ -63,7 +63,7 @@ def _load_lib():
 
 def load(filepath: str):
     """Parse a PTV CSV natively → PointCloud. Raises on parse errors (the
-    caller maps them to the pandas fallback / IOError contract)."""
+    caller maps them to the numpy fallback / IOError contract)."""
     from ptv_interpolation_tpu.io.csvio import PointCloud
 
     lib = _load_lib()

@@ -17,7 +17,7 @@ codec supporting exactly what the pipeline needs:
   uncompressed (default) or deflate (``compression='deflate'``).
 
 This is a host-side utility (numpy only) — TIFF parsing is pointer-chasing
-and irrelevant to TPU throughput.
+and irrelevant to device throughput.
 """
 
 from __future__ import annotations

@@ -1,33 +1,33 @@
-"""Fused two-phase grid kNN: compact candidate gather (XLA) + VMEM-resident
-τ-bisection weighted sum (Pallas).
+"""Fused two-phase grid kNN: compact candidate gather (XLA) + streaming
+τ-bisection weighted sum (Pallas, Triton route).
 
-Why this exists — the roofline of the one-phase XLA kernel
-(``ops/grid_knn.py::_grid_block_weighted_sum``): its (B, C) distance panel
-(≈16 MB at the 1M→256³/k=50 bench geometry) is materialized in HBM and
-re-streamed by each of the 24 τ-bisection counting passes, ≈6–7 TB of HBM
-traffic over the 16 384 blocks — at v5e's ~0.8 TB/s that IS the measured
-~8 s wall. This module restructures the same math so the panel is read
-O(1) times from HBM:
+Why a kernel — the one-phase XLA form
+(``ops/grid_knn.py::_grid_block_weighted_sum``) materializes each block's
+(B, C) distance panel in device memory (≈16 MB per block at the
+1M→256³/k=50 geometry) and re-reads it in each of the 24 τ-bisection
+counting passes: its cost is memory traffic, not arithmetic. This module
+restructures the same math so that no panel is ever stored:
 
 * **Phase 1 (XLA)** gathers each block's candidate rows once and writes a
-  *compacted* per-block panel ``(n_blocks, 8, C)`` — rows x,y,z,u,v,w,0,0,
+  *compacted* per-block panel ``(8, n_blocks·C)`` — rows x,y,z,u,v,w,0,0,
   invalid slots filled with far sentinels. Compaction (cumsum over the
   block's CSR rows + a vectorized slot→row search) shrinks C from
-  ``n_rows × row_capacity`` (max-padded, ~4k) to the actual candidate
-  count (~1.3k): ~3× less panel work for phase 2.
-* **Phase 2 (Pallas)** runs per block entirely in VMEM: the (Bt, C)
-  distance sub-panel is built once in scratch, the 24 bisection passes are
-  a ``lax.fori_loop`` over that VMEM panel (multi-pass is free on-chip),
-  weights and the exact per-channel f32 VPU reductions follow in place.
-  HBM traffic per block collapses from ~400 MB to ~50 KB.
+  ``n_rows × row_capacity`` (max-padded) to the actual candidate count.
+* **Phase 2 (Pallas/Triton)** runs one program per (grid block, tile of
+  ``_TQ`` queries). Every pass streams the block's candidates in chunks of
+  ``_CC`` (12 B each for x, y, z — the block's panel stays in L1/L2) and
+  **recomputes** d² instead of storing it; counts and τ live in registers.
+  The bisection passes, the sibson statistics, and the weighted
+  per-channel sums all run in the one program.
 
 Selection math is identical to the XLA path's ``tau_mode='bisect'``
-(monotone counting of ``#{d² ≤ t}``, 24 halvings of [0, margin²] — exact
-k-th distance to ~margin²·2⁻²⁴, i.e. parity-equivalent to exact top-k),
-and the coverage sentinel / ``repair_empty_nodes`` escape hatch is shared
-unchanged. The 24 unrolled compare+reduce passes that inflated the XLA
-HLO (and drove the ~10-minute cold remote compiles recorded in round 2)
-become one small fori_loop in Mosaic.
+(monotone counting of ``#{d² ≤ t}``: 24 halvings of [0, margin²], then
+one pass that snaps τ² to the k-th d² itself — exact top-k selection),
+and d² is computed with the same expression as the XLA form, so both
+select the same neighbors. The coverage sentinel / ``repair_empty_nodes``
+escape hatch is shared unchanged. The kernel has no matrix contraction:
+every operation is an f32 subtract/multiply/compare/count, ``sqrt`` or
+``exp``.
 
 Reference parity target: the sibson/IDW weight math of
 `/root/reference/interpolator.py:83-155` (same formulas as
@@ -44,18 +44,35 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ptv_interpolation_tpu.grid import Grid
 
 
-_SENTINEL = 1e19          # sentinel coordinate → d² ≈ 1e38, never selected
 _EPS = 1e-10              # reference's weight epsilon (interpolator.py:106)
 _BISECT_ITERS = 24
+# tile shape, swept on an H100 at the 1M→256³ headline (PERF.md): larger
+# query tiles spill registers (128 queries ran 4× slower than 64)
+_TQ = 32                  # queries per kernel program
+_CC = 32                  # candidates per streamed chunk (C is padded to it)
+_NUM_WARPS = 2
 
 
 def _block_counts(n: int, b: int) -> int:
     return (n + b - 1) // b
+
+
+def _panel_width(c_raw: int) -> int:
+    """Static panel width: the candidate count rounded up to whole chunks."""
+    return max((c_raw + _CC - 1) // _CC * _CC, _CC)
+
+
+def _query_tile(B: int) -> int:
+    """Queries per program for a block of ``B`` queries (a power of two —
+    Triton tiles are powers of two and a tile must not straddle blocks)."""
+    if B & (B - 1):
+        raise ValueError(f"block volume {B} must be a power of two")
+    return min(B, _TQ)
 
 
 # ---------------------------------------------------------------------------
@@ -110,7 +127,7 @@ def _compact_indices(cells, axes, margin,
         offsets = jnp.concatenate(
             [jnp.zeros((1,), jnp.int32), jnp.cumsum(cnt)])    # (R+1,)
         # slot → source row: #(offsets[1:] <= slot) — R is small (~50), the
-        # dense compare+sum beats a binary search on the VPU
+        # dense compare+sum beats a binary search
         row = jnp.sum((slots[:, None] >= offsets[None, 1:]).astype(jnp.int32),
                       axis=1)                                  # (C,)
         valid = slots < offsets[-1]
@@ -130,216 +147,256 @@ def _compact_indices(cells, axes, margin,
 
 
 @jax.jit
-def _build_pts8_t(points_sorted, values_sorted):
-    """(8, N+pad) transposed candidate store [x,y,z,u,v,w,0,0]: the lane
-    layout the flat panel gather and the Pallas kernel both want. Sentinel
-    rows carry 1e19 coords (from ``points_sorted``'s padding) and zero
-    values (``values_sorted``'s padding), so compaction needs no explicit
+def _build_pts8(points_sorted, values_sorted):
+    """(N+pad, 8) candidate store [x,y,z,u,v,w,0,0], one 32-byte row per
+    point so the panel gather reads whole rows. Sentinel rows carry 1e19
+    coords (from ``points_sorted``'s padding) and zero values
+    (``values_sorted``'s padding), so compaction needs no explicit
     validity channel."""
     V = values_sorted.shape[1]
     n = points_sorted.shape[0]
-    z = jnp.zeros((8 - 3 - V, n), jnp.float32)
-    return jnp.concatenate([points_sorted.T, values_sorted.T, z], axis=0)
+    z = jnp.zeros((n, 8 - 3 - V), jnp.float32)
+    return jnp.concatenate([points_sorted, values_sorted, z], axis=1)
 
 
 @jax.jit
-def _panel_take(pts8_t, G):
-    """One flat lane-gather: (8, N) taken at (n_blocks·C,) indices →
-    (8, n_blocks·C). A single big gather runs ~6× faster on TPU than the
-    per-block ``lax.map`` gathers it replaces (measured 0.22 s vs 1.34 s
-    for the 1M→256³ panel), and the lane-major result needs no transpose:
-    the Pallas kernel windows the lane axis directly via its BlockSpec."""
-    return jnp.take(pts8_t, G.reshape(-1), axis=1)
+def _panel_take(pts8, G):
+    """One flat row gather, (N, 8) at (n_blocks·C,) → (8, n_blocks·C): the
+    channel-major panel the kernel streams (each channel of a chunk is one
+    contiguous load)."""
+    return jnp.take(pts8, G.reshape(-1), axis=0).T
 
 
 def _compact_gather(cells, values_sorted, axes, margin,
                     block: Tuple[int, int, int],
                     grid_shape: Tuple[int, int, int],
                     mc: Tuple[int, int, int], C: int, group: int = 64,
-                    ids=None, pts8_t=None):
-    """Candidate panel for the fused kernel: (8, n_blocks·C) lane-major,
+                    ids=None, pts8=None):
+    """Candidate panel for the fused kernel: (8, n_blocks·C) channel-major,
     rows [x, y, z, u, v, w, 0, 0]; invalid slots hold far-sentinel coords
     and zero values. ``group`` bounds the (group, C, R) slot-search
     intermediate of the index stage."""
-    if pts8_t is None:
-        pts8_t = _build_pts8_t(cells.points_sorted, values_sorted)
+    if pts8 is None:
+        pts8 = _build_pts8(cells.points_sorted, values_sorted)
     G = _compact_indices(cells, axes, margin, block, grid_shape, mc, C,
                          ids=ids, group=group)
-    return _panel_take(pts8_t, G)
+    return _panel_take(pts8, G)
 
 
 # ---------------------------------------------------------------------------
-# Phase 2: fused VMEM panel kernel (Pallas)
+# Phase 2: streaming panel kernel (Pallas, Triton route)
 # ---------------------------------------------------------------------------
 
-def _fused_kernel(m2_ref, cand_ref, qx_ref, qy_ref, qz_ref, out_ref,
-                  d2, dd, *, block, dims, sz, k, V, mode, power):
-    bz, by, bx = block
-    Bt = sz * by * bx
+def _chunk_d2(cand_ref, j, qx, qy, qz):
+    """(tq, _CC) squared distances of the tile's queries to chunk ``j`` of
+    the block's candidates. Every pass calls this one function, so every
+    pass computes bit-identical d² — the τ mask below depends on that."""
+    sl = pl.ds(j * _CC, _CC)
+    dx = qx[:, None] - cand_ref[0, sl][None, :]
+    dy = qy[:, None] - cand_ref[1, sl][None, :]
+    dz = qz[:, None] - cand_ref[2, sl][None, :]
+    return dx * dx + dy * dy + dz * dz
 
-    cx = cand_ref[0, :]
-    cy = cand_ref[1, :]
-    cz = cand_ref[2, :]
 
-    # flat query coordinates for this (block, sub-tile), prebuilt in XLA —
-    # Mosaic cannot relayout lane vectors across the query axes, so the
-    # (tz, ty, tx) → row flattening happens outside the kernel
-    qx = qx_ref[0, 0, :]                                        # (Bt,)
-    qy = qy_ref[0, 0, :]
-    qz = qz_ref[0, 0, :]
+def _chunk_count(n_chunks: int, tq: int, pred):
+    """(tq,) i32 count of ``pred(j) -> (tq, _CC) bool`` over all chunks.
+    Counts accumulate elementwise and are reduced once per pass, not once
+    per chunk."""
+    def body(j, acc):
+        return acc + pred(j).astype(jnp.int32)
+    acc = jax.lax.fori_loop(0, n_chunks, body,
+                            jnp.zeros((tq, _CC), jnp.int32))
+    return jnp.sum(acc, axis=1)
 
-    # distance panel, built once in VMEM scratch (accumulated in place to
-    # bound Mosaic's temporary count)
-    d2[:] = (qx[:, None] - cx[None, :]) ** 2
-    d2[:] = d2[:] + (qy[:, None] - cy[None, :]) ** 2
-    d2[:] = d2[:] + (qz[:, None] - cz[None, :]) ** 2
 
-    m2 = m2_ref[0, 0]
-    kf = jnp.float32(k)
-    # coverage sentinel: #candidates inside the margin ≥ k ⟺ the true k-th
-    # distance ≤ margin (guaranteed-radius property) — identical to the XLA
-    # path's sentinel; counts fit f32 exactly (C < 2^24)
-    cnt_in = jnp.sum((d2[:] <= m2).astype(jnp.float32), axis=1, keepdims=True)
-    covered = cnt_in >= kf
-
-    # exact τ by monotone counting: 24 halvings of [0, margin²] pin the
-    # k-th distance below the f32 spacing of any realistic d² — all passes
-    # read the VMEM-resident panel, no HBM traffic
+def _bisect(count_le, need, lo, hi):
+    """Bracket [lo, hi] (width (hi-lo)·2⁻²⁴) with ``count_le(lo) < need ≤
+    count_le(hi)`` — the monotone-counting order statistic shared by the
+    kNN and MAD kernels."""
     def body(_, carry):
         lo, hi = carry
         mid = 0.5 * (lo + hi)
-        c = jnp.sum((d2[:] <= mid).astype(jnp.float32), axis=1,
-                    keepdims=True)
-        short = c < kf
-        return (jnp.where(short, mid, lo), jnp.where(short, hi, mid))
+        short = count_le(mid) < need
+        return jnp.where(short, mid, lo), jnp.where(short, hi, mid)
+    return jax.lax.fori_loop(0, _BISECT_ITERS, body, (lo, hi))
 
-    lo0 = jnp.zeros((Bt, 1), jnp.float32)
-    hi0 = jnp.full((Bt, 1), 1.0, jnp.float32) * m2
-    _, tau2 = jax.lax.fori_loop(0, _BISECT_ITERS, body, (lo0, hi0))
+
+def _exact_kth(n_chunks: int, tq: int, d2_of, need: int, lo, hi):
+    """The need-th smallest d² itself, from a bisection bracket.
+
+    24 halvings leave [lo, hi] about one f32 spacing wide at the k-th
+    distance, and when the (need+1)-th d² falls inside it too, ``hi``
+    selects one candidate too many. One more pass counts the candidates
+    at or below ``lo`` and finds the smallest d² above it: when exactly
+    need-1 lie at or below ``lo``, that smallest value is the need-th.
+    Otherwise (uncovered queries, exact ties) ``hi`` stands. The XLA form
+    (``grid_knn._snap_kth``) applies the same rule."""
+    def body(j, carry):
+        c_lo, m = carry
+        d2 = d2_of(j)
+        above = d2 > lo[:, None]
+        return (c_lo + (~above).astype(jnp.int32),
+                jnp.minimum(m, jnp.where(above, d2, 3.4e38)))
+    c_lo, m = jax.lax.fori_loop(
+        0, n_chunks, body, (jnp.zeros((tq, _CC), jnp.int32),
+                            jnp.full((tq, _CC), 3.4e38, jnp.float32)))
+    c_lo = jnp.sum(c_lo, axis=1)
+    m = jnp.min(m, axis=1)
+    return jnp.where((c_lo == need - 1) & (m <= hi), m, hi)
+
+
+def _fused_kernel(m2_ref, cand_ref, qx_ref, qy_ref, qz_ref, out_ref, *,
+                  k, V, mode, power, n_chunks):
+    qx = qx_ref[...]                                            # (tq,)
+    qy = qy_ref[...]
+    qz = qz_ref[...]
+    tq = qx.shape[0]
+    m2 = jnp.full((tq,), m2_ref[0], jnp.float32)
+
+    def d2_of(j):
+        return _chunk_d2(cand_ref, j, qx, qy, qz)
+
+    def count_le(t):
+        return _chunk_count(n_chunks, tq, lambda j: d2_of(j) <= t[:, None])
+
+    # coverage sentinel: #candidates inside the margin ≥ k ⟺ the true k-th
+    # distance ≤ margin (guaranteed-radius property) — identical to the XLA
+    # path's sentinel
+    covered = count_le(m2) >= k
+    # exact τ by monotone counting: 24 halvings of [0, margin²] pin the
+    # k-th distance to about one f32 spacing, one more pass snaps it
+    lo, hi = _bisect(count_le, k, jnp.zeros((tq,), jnp.float32), m2)
+    tau2 = _exact_kth(n_chunks, tq, d2_of, k, lo, hi)
 
     # the τ mask is evaluated in the SQUARED domain (sel = d² ≤ τ²), the
-    # domain the bisection searched: Mosaic's sqrt is not correctly
-    # rounded, and re-deriving the mask as sqrt(d²) ≤ sqrt(τ²) dropped the
-    # k-th neighbor (whose d² sits within an ulp of τ² by construction)
-    # for ~1.4% of queries — n_sel 49, a 1e-4-scale weight error each
-    sel = d2[:] <= tau2
-    dd[:] = jnp.sqrt(jnp.maximum(d2[:], 0.0))
+    # domain the bisection searched: the k-th neighbor's d² sits within an
+    # ulp of τ² by construction, so re-deriving the mask through sqrt (not
+    # correctly rounded on every device) can drop it
+    def sel_d(j):
+        d2 = d2_of(j)
+        return d2 <= tau2[:, None], jnp.sqrt(jnp.maximum(d2, 0.0))
 
     if mode == "idw":
-        if power == 2.0:
-            dd[:] = jnp.where(sel, 1.0 / (dd[:] * dd[:] + _EPS), 0.0)
-        else:
-            dd[:] = jnp.where(sel, 1.0 / (dd[:] ** power + _EPS), 0.0)
+        def weight(sel, d):
+            if power == 2.0:
+                return jnp.where(sel, 1.0 / (d * d + _EPS), 0.0)
+            return jnp.where(sel, 1.0 / (d ** power + _EPS), 0.0)
     else:
         # sibson (`interpolator.py:102-116`): masked mean/std/min of the
-        # k-set distances, then inv-dist × shifted-exp smoothing. Stats are
-        # panel reductions; only then is the panel overwritten by weights.
-        okf = sel.astype(jnp.float32)
-        n_ok = jnp.maximum(jnp.sum(okf, axis=1, keepdims=True), 1.0)
-        s1 = jnp.sum(jnp.where(sel, dd[:], 0.0), axis=1, keepdims=True)
+        # k-set distances, then inv-dist × shifted-exp smoothing
+        def stats(j, carry):
+            n_ok, s1, dmin = carry
+            sel, d = sel_d(j)
+            return (n_ok + jnp.sum(sel.astype(jnp.float32), axis=1),
+                    s1 + jnp.sum(jnp.where(sel, d, 0.0), axis=1),
+                    jnp.minimum(dmin, jnp.min(jnp.where(sel, d, 3.4e38),
+                                              axis=1)))
+        zeros = jnp.zeros((tq,), jnp.float32)
+        n_ok, s1, dmin = jax.lax.fori_loop(
+            0, n_chunks, stats,
+            (zeros, zeros, jnp.full((tq,), 3.4e38, jnp.float32)))
+        n_ok = jnp.maximum(n_ok, 1.0)
         mean = s1 / n_ok
+
         # two-pass masked ddof=0 variance, NOT E[d²]−E[d]²: the one-pass
         # form cancels (std/mean)² ≈ 1e-2 of the mantissa and the resulting
         # ~1e-5 std error leaks through exp(-(d-dmin)/std) into the weights
-        # (measured: headline L2 parity 1.8e-5 one-pass vs 1.1e-7 two-pass)
-        var = jnp.sum(jnp.where(sel, (dd[:] - mean) ** 2, 0.0), axis=1,
-                      keepdims=True) / n_ok
-        std = jnp.sqrt(var)
-        dmin = jnp.min(jnp.where(sel, dd[:], 3.4e38), axis=1, keepdims=True)
+        def var_body(j, acc):
+            sel, d = sel_d(j)
+            dev = d - mean[:, None]
+            return acc + jnp.sum(jnp.where(sel, dev * dev, 0.0), axis=1)
+        std = jnp.sqrt(jax.lax.fori_loop(0, n_chunks, var_body, zeros)
+                       / n_ok)
         dmin = jnp.where(dmin > 1e18, 0.0, dmin)
-        dd[:] = jnp.where(
-            sel,
-            (1.0 / (dd[:] + _EPS))
-            * jnp.exp(-(dd[:] - dmin) / (std + _EPS)), 0.0)
 
-    den = jnp.sum(dd[:], axis=1)                                # (Bt,)
+        def weight(sel, d):
+            return jnp.where(
+                sel, (1.0 / (d + _EPS))
+                * jnp.exp(-(d - dmin[:, None]) / (std[:, None] + _EPS)), 0.0)
+
+    def sums(j, carry):
+        sel, d = sel_d(j)
+        w = weight(sel, d)
+        sl = pl.ds(j * _CC, _CC)
+        return (carry[0] + jnp.sum(w, axis=1),) + tuple(
+            carry[1 + c] + jnp.sum(w * cand_ref[3 + c, sl][None, :], axis=1)
+            for c in range(V))
+
+    acc = jax.lax.fori_loop(0, n_chunks, sums,
+                            (jnp.zeros((tq,), jnp.float32),) * (V + 1))
+    den = acc[0]
     inv_den = 1.0 / jnp.maximum(den, 1e-37)
-    # exact per-channel f32 VPU reductions (no MXU rounding)
     for c in range(V):
-        num = jnp.sum(dd[:] * cand_ref[3 + c, :][None, :], axis=1)
-        out_ref[0, 0, c, :] = num * inv_den
-    out_ref[0, 0, V, :] = jnp.where(covered[:, 0], den, 0.0)
+        out_ref[c, :] = acc[1 + c] * inv_den
+    out_ref[V, :] = jnp.where(covered, den, 0.0)
     for c in range(V + 1, 8):
-        out_ref[0, 0, c, :] = jnp.zeros((Bt,), jnp.float32)
+        out_ref[c, :] = jnp.zeros((tq,), jnp.float32)
 
 
-@functools.partial(jax.jit, static_argnames=("block", "dims", "sz"))
-def _build_queries(axes, block, dims, sz, ids=None):
-    """Flat per-(block, sub-tile) query coordinate rows, (n_rows, 1, Bt)
-    each for x/y/z — the (ibz, iby, ibx, j, tz, ty, tx) flattening the
-    Pallas kernel cannot do in-register. With ``ids`` (n_sel,), rows are
-    built only for those flat block indices."""
+@functools.partial(jax.jit, static_argnames=("block", "dims", "tq"))
+def _build_queries(axes, block, dims, tq, ids=None):
+    """Per-program query coordinates, (n_rows, tq) each for x/y/z: each
+    block's queries in local (tz, ty, tx) order, cut into tiles of ``tq``.
+    With ``ids`` (n_sel,), rows are built only for those flat block
+    indices."""
     bz, by, bx = block
     nbz, nby, nbx = dims
-    n_sub = bz // sz
-    Bt = sz * by * bx
     x_ax, y_ax, z_ax = axes
     if ids is not None:
         n_sel = ids.shape[0]
         ibz = ids // (nby * nbx)
         iby = (ids // nbx) % nby
         ibx = ids % nbx
-        shape = (n_sel, n_sub, sz, by, bx)
+        shape = (n_sel, bz, by, bx)
         qx = jnp.broadcast_to(
             x_ax[ibx[:, None] * bx + jnp.arange(bx)[None, :]]
-            .reshape(n_sel, 1, 1, 1, bx), shape)
+            .reshape(n_sel, 1, 1, bx), shape)
         qy = jnp.broadcast_to(
             y_ax[iby[:, None] * by + jnp.arange(by)[None, :]]
-            .reshape(n_sel, 1, 1, by, 1), shape)
+            .reshape(n_sel, 1, by, 1), shape)
         qz = jnp.broadcast_to(
             z_ax[ibz[:, None] * bz + jnp.arange(bz)[None, :]]
-            .reshape(n_sel, n_sub, sz, 1, 1), shape)
-        n_rows = n_sel * n_sub
-        return (qx.reshape(n_rows, 1, Bt), qy.reshape(n_rows, 1, Bt),
-                qz.reshape(n_rows, 1, Bt))
-    shape = (nbz, nby, nbx, n_sub, sz, by, bx)
-    qx = jnp.broadcast_to(
-        x_ax.reshape(1, 1, nbx, 1, 1, 1, bx), shape)
-    qy = jnp.broadcast_to(
-        y_ax.reshape(1, nby, 1, 1, 1, by, 1), shape)
-    qz = jnp.broadcast_to(
-        z_ax.reshape(nbz, 1, 1, n_sub, sz, 1, 1), shape)
-    n_rows = nbz * nby * nbx * n_sub
-    return (qx.reshape(n_rows, 1, Bt), qy.reshape(n_rows, 1, Bt),
-            qz.reshape(n_rows, 1, Bt))
+            .reshape(n_sel, bz, 1, 1), shape)
+    else:
+        shape = (nbz, nby, nbx, bz, by, bx)
+        qx = jnp.broadcast_to(x_ax.reshape(1, 1, nbx, 1, 1, bx), shape)
+        qy = jnp.broadcast_to(y_ax.reshape(1, nby, 1, 1, by, 1), shape)
+        qz = jnp.broadcast_to(z_ax.reshape(nbz, 1, 1, bz, 1, 1), shape)
+    return qx.reshape(-1, tq), qy.reshape(-1, tq), qz.reshape(-1, tq)
 
 
 @functools.partial(jax.jit, static_argnames=(
-    "block", "dims", "sz", "k", "V", "C", "mode", "power", "interpret"))
-def _fused_eval(m2, cand, qx_all, qy_all, qz_all, block, dims, sz, k, V, C,
+    "block", "k", "V", "C", "mode", "power", "interpret"))
+def _fused_eval(m2, cand, qx_all, qy_all, qz_all, block, k, V, C,
                 mode, power, interpret=False):
+    """Phase 2 over every block of the candidate panel: returns
+    (n_blocks, n_sub, 8, tq) rows [field_0..V-1, den, 0...] per query
+    tile. ``m2``: (1,) margin²."""
     bz, by, bx = block
-    # blocks come from the candidate panel, NOT dims: subset (repair)
-    # evaluation passes a panel holding only the uncovered blocks
+    tq = qx_all.shape[1]
+    # blocks come from the candidate panel: subset (repair) evaluation
+    # passes a panel holding only the uncovered blocks
     n_blocks = cand.shape[1] // C
-    n_sub = bz // sz
-    Bt = sz * by * bx
+    n_sub = bz * by * bx // tq
 
-    kern = functools.partial(_fused_kernel, block=block, dims=dims, sz=sz,
-                             k=k, V=V, mode=mode, power=power)
-    q_spec = pl.BlockSpec((1, 1, Bt), lambda i, j: (i * n_sub + j, 0, 0),
-                          memory_space=pltpu.VMEM)
-    out = pl.pallas_call(
+    kern = functools.partial(_fused_kernel, k=k, V=V, mode=mode, power=power,
+                             n_chunks=C // _CC)
+    q_spec = pl.BlockSpec((None, tq), lambda i, j: (i * n_sub + j, 0))
+    return pl.pallas_call(
         kern,
         grid=(n_blocks, n_sub),
         in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),              # m2 (1, 1)
-            pl.BlockSpec((8, C), lambda i, j: (0, i),
-                         memory_space=pltpu.VMEM),              # candidates
+            pl.BlockSpec((1,), lambda i, j: (0,)),                 # m2
+            pl.BlockSpec((8, C), lambda i, j: (0, i)),             # panel
             q_spec, q_spec, q_spec,
         ],
-        out_specs=pl.BlockSpec((1, 1, 8, Bt), lambda i, j: (i, j, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n_blocks, n_sub, 8, Bt), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((Bt, C), jnp.float32),
-                        pltpu.VMEM((Bt, C), jnp.float32)],
-        # the (Bt, C) panel plus Mosaic's expression temporaries exceed the
-        # default 16 MB scoped budget; v5e has 128 MB VMEM per core
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
+        out_specs=pl.BlockSpec((None, None, 8, tq),
+                               lambda i, j: (i, j, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((n_blocks, n_sub, 8, tq), jnp.float32),
+        compiler_params=plgpu.CompilerParams(num_warps=_NUM_WARPS),
         interpret=interpret,
+        name="fused_grid_knn",
     )(m2, cand, qx_all, qy_all, qz_all)
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -411,7 +468,7 @@ def _block_total_capacity(cells, axes_np, margin: float,
 
     if cells.starts_host is None:
         # device CSR build: integral image on device, pull the ~64 KB
-        # per-block table (the full starts pull was ~0.17 s at 750k cells)
+        # per-block table instead of the full starts array
         tot = np.asarray(_block_tot_device(
             cells.starts, jnp.asarray(x0, jnp.int32),
             jnp.asarray(x1, jnp.int32), jnp.asarray(base_y, jnp.int32),
@@ -439,23 +496,10 @@ def _block_total_capacity(cells, axes_np, margin: float,
     return int(tot.max()) if tot.size else 1
 
 
-def _pick_sz(bz: int, by: int, bx: int, target: int = 256) -> int:
-    """Largest divisor of bz with a sub-tile of sz·by·bx ≤ target queries
-    (panel ≤ 2 · target × C f32 in VMEM). Bigger sub-tiles amortize the
-    per-invocation Mosaic overhead slightly (1024 measured ~5% faster
-    warm at the bench geometry) but inflate the Mosaic compile 3×
-    (fresh-cache first call 59.5 s at 256 vs 154.9 s at 1024) — cold
-    start is the scarcer resource."""
-    best = 1
-    for sz in range(1, bz + 1):
-        if bz % sz == 0 and sz * by * bx <= target:
-            best = sz
-    return best
-
-
 class FusedCapacityError(ValueError):
-    """The compacted candidate panel would exceed the VMEM budget —
-    callers fall back to the streaming XLA path."""
+    """The compacted candidate panel would exceed ``max_panel`` (its
+    device-memory footprint and the per-query pass cost both grow with C)
+    — callers fall back to the streaming XLA path."""
 
 
 def fused_grid_weighted_interpolate(points, values, grid: Grid, k: int,
@@ -475,15 +519,15 @@ def fused_grid_weighted_interpolate(points, values, grid: Grid, k: int,
     if block is None:
         block = (4, 8, 16) if skip_mask is not None else (8, 8, 16)
     bz, by, bx = block
+    tq = _query_tile(bz * by * bx)
 
     setup = _host_setup(points, values, grid, k, None, None, block,
                         margin_factor, cell_divisor=3.0)
     (cells, values_sorted, axes, margin, mc, _row_len, values_dev) = setup
     axes_np = tuple(np.asarray(a) for a in axes)
 
-    C_raw = _block_total_capacity(cells, axes_np, margin, block, grid.shape,
-                                  mc)
-    C = max((C_raw + 127) // 128 * 128, 128)
+    C = _panel_width(_block_total_capacity(cells, axes_np, margin, block,
+                                           grid.shape, mc))
     if C > max_panel:
         raise FusedCapacityError(
             f"compacted candidate panel {C} exceeds max_panel={max_panel}; "
@@ -493,21 +537,20 @@ def fused_grid_weighted_interpolate(points, values, grid: Grid, k: int,
     dims = (_block_counts(nz, bz), _block_counts(ny, by),
             _block_counts(nx, bx))
     V = int(np.shape(values)[1])
-    sz = _pick_sz(bz, by, bx)
 
     cand = _compact_gather(cells, values_sorted, axes, jnp.float32(margin),
                            tuple(block), grid.shape, mc, C, group)
-    m2 = jnp.asarray([[margin * margin]], jnp.float32)
-    qx_all, qy_all, qz_all = _build_queries(axes, tuple(block), dims, sz)
-    out = _fused_eval(m2, cand, qx_all, qy_all, qz_all,
-                      tuple(block), dims, sz, int(k), V, C, mode,
-                      float(power), interpret=bool(interpret))
-    out = _reassemble(out, tuple(block), dims, sz, grid.shape)
+    m2 = jnp.asarray([margin * margin], jnp.float32)
+    qx_all, qy_all, qz_all = _build_queries(axes, tuple(block), dims, tq)
+    out = _fused_eval(m2, cand, qx_all, qy_all, qz_all, tuple(block),
+                      int(k), V, C, mode, float(power),
+                      interpret=bool(interpret))
+    out = _reassemble(out, tuple(block), dims, grid.shape)
     field, den = out[..., :V], out[..., V]
     return repair_empty_nodes(field, den, points, values_dev, grid, k, mode,
                               power, cells=cells, margin=margin,
                               skip_mask=skip_mask, values_sorted=values_sorted,
-                              block=tuple(block))
+                              block=tuple(block), interpret=interpret)
 
 
 def fused_subset_weighted_sum(cells, values_sorted, axes, margin: float,
@@ -515,30 +558,25 @@ def fused_subset_weighted_sum(cells, values_sorted, axes, margin: float,
                               grid_shape: Tuple[int, int, int],
                               mc: Tuple[int, int, int], mode: str,
                               power: float, V: int,
-                              max_panel: int = 8192, group: int = 8):
+                              max_panel: int = 8192, group: int = 8,
+                              interpret: bool = False):
     """Fused-kernel analogue of ``grid_knn._grid_block_weighted_sum_subset``:
     evaluate only the blocks in ``ids_np`` (host int array) at the given
     (typically widened) margin. Returns ``(n_sel, B, V+1)`` in ids order
     with the coverage-sentinel den channel, or ``None`` when the compacted
     panel would not fit (caller falls back to the streaming subset kernel).
-
-    This is the repair stage-1 evaluator on TPU: the streaming subset
-    kernel re-streams a ~8.7k-wide padded panel from HBM for each of the
-    24+6 passes (~1 s warm at the 1M→256³ bench, where repair serves only
-    ~14k nodes); the compacted VMEM form is ~3× narrower and single-read.
     """
     bz, by, bx = block
+    B = bz * by * bx
     axes_np = tuple(np.asarray(a) for a in axes)
-    C_raw = _block_total_capacity(cells, axes_np, margin, block, grid_shape,
-                                  mc, ids=ids_np)
-    C = max((C_raw + 127) // 128 * 128, 128)
+    C = _panel_width(_block_total_capacity(cells, axes_np, margin, block,
+                                           grid_shape, mc, ids=ids_np))
     if C > max_panel:
         return None
     nz, ny, nx = grid_shape
     dims = (_block_counts(nz, bz), _block_counts(ny, by),
             _block_counts(nx, bx))
-    sz = _pick_sz(bz, by, bx)
-    n_sub = bz // sz
+    tq = _query_tile(B)
     g = group
     n_pad = (len(ids_np) + g - 1) // g * g
     ids_pad = np.concatenate(
@@ -547,14 +585,18 @@ def fused_subset_weighted_sum(cells, values_sorted, axes, margin: float,
     cand = _compact_gather(cells, values_sorted, axes, jnp.float32(margin),
                            tuple(block), grid_shape, mc, C, group,
                            ids=ids_dev)
-    m2 = jnp.asarray([[margin * margin]], jnp.float32)
-    qx, qy, qz = _build_queries(axes, tuple(block), dims, sz, ids=ids_dev)
-    out = _fused_eval(m2, cand, qx, qy, qz, tuple(block), dims, sz, int(k),
-                      V, C, mode, float(power))
-    # (n_pad, n_sub, 8, Bt) → (n_pad, B, V+1) in local (tz, ty, tx) order
-    out = out.reshape(n_pad, n_sub, 8, sz, by * bx)
-    out = out.transpose(0, 1, 3, 4, 2).reshape(n_pad, bz * by * bx, 8)
-    return out[:len(ids_np), :, :V + 1]
+    m2 = jnp.asarray([margin * margin], jnp.float32)
+    qx, qy, qz = _build_queries(axes, tuple(block), dims, tq, ids=ids_dev)
+    out = _fused_eval(m2, cand, qx, qy, qz, tuple(block), int(k), V, C,
+                      mode, float(power), interpret=bool(interpret))
+    return _block_rows(out, B)[:len(ids_np), :, :V + 1]
+
+
+def _block_rows(out, B: int):
+    """(n, n_sub, 8, tq) kernel output → (n, B, 8) rows in each block's
+    local (tz, ty, tx) order (tile j holds local queries j·tq … j·tq+tq-1)."""
+    n = out.shape[0]
+    return out.transpose(0, 1, 3, 2).reshape(n, B, 8)
 
 
 # ---------------------------------------------------------------------------
@@ -568,9 +610,8 @@ _NBLK_MAX = 4096
 def _repair_survey(den, skip, block, dims, nblk_max: int):
     """One device program for everything the repair driver must know before
     it can launch: ``[n_fix, n_bad, bad_block_ids...]`` as one (2+nblk_max,)
-    int32 vector (ids padded with -1). One D2H pull replaces the legacy
-    ladder's scalar-sum sync + nonzero + 14k-index pull
-    (`tools/profile_setup_repair.py`: 0.23 s of the 0.65 s repair wall)."""
+    int32 vector (ids padded with -1). One device-to-host pull replaces the
+    legacy ladder's scalar-sum sync + nonzero + index pull."""
     den_eff = den if skip is None else jnp.where(skip, 1.0, den)
     bad = den_eff == 0.0
     n_fix = jnp.sum(bad, dtype=jnp.int32)
@@ -587,36 +628,31 @@ def _repair_survey(den, skip, block, dims, nblk_max: int):
 
 
 @functools.partial(jax.jit, static_argnames=(
-    "block", "dims", "sz", "k", "V", "C", "mode", "power", "grid_shape",
+    "block", "dims", "tq", "k", "V", "C", "mode", "power", "grid_shape",
     "mc", "group", "interpret"))
 def _fused_repair_apply(field, den, skip, cells, values_sorted, axes2,
-                        margin2, ids_dev, n_bad, block, dims, sz, k: int,
+                        margin2, ids_dev, n_bad, block, dims, tq, k: int,
                         V: int, C: int, mode: str, power: float, grid_shape,
                         mc, group: int = 8, interpret: bool = False):
     """The whole repair stage as ONE traced program: widened-margin panel
-    gather + fused Pallas eval + row pick + certification + scatter into
-    the field. Returns (field', den', n_repaired). The legacy ladder this
-    replaces made ~6 host round-trips (eager picked-row gather ~0.9 s and
-    eager scatter ~0.8 s at the 1M→256³ bench on a cold-shape day)."""
+    gather + fused kernel eval + row pick + certification + scatter into
+    the field. Returns (field', den', n_repaired)."""
     bz, by, bx = block
     nbz, nby, nbx = dims
     nz, ny, nx = grid_shape
     NBLK = ids_dev.shape[0]
-    n_sub = bz // sz
     B = bz * by * bx
     den_eff = den if skip is None else jnp.where(skip, 1.0, den)
 
-    pts8_t = _build_pts8_t(cells.points_sorted, values_sorted)
+    pts8 = _build_pts8(cells.points_sorted, values_sorted)
     G = _compact_indices(cells, axes2, margin2, block, grid_shape, mc, C,
                          ids=ids_dev, group=group)
-    cand = _panel_take(pts8_t, G)
-    m2 = (margin2 * margin2).reshape(1, 1).astype(jnp.float32)
-    qx, qy, qz = _build_queries(axes2, block, dims, sz, ids=ids_dev)
-    sub = _fused_eval(m2, cand, qx, qy, qz, block, dims, sz, k, V, C,
-                      mode, power, interpret=interpret)
-    # (NBLK, n_sub, 8, Bt) → (NBLK, B, 8) rows in local (tz, ty, tx) order
-    rows = sub.reshape(NBLK, n_sub, 8, sz, by * bx)
-    rows = rows.transpose(0, 1, 3, 4, 2).reshape(NBLK, B, 8)
+    cand = _panel_take(pts8, G)
+    m2 = (margin2 * margin2).reshape(1).astype(jnp.float32)
+    qx, qy, qz = _build_queries(axes2, block, dims, tq, ids=ids_dev)
+    sub = _fused_eval(m2, cand, qx, qy, qz, block, k, V, C, mode, power,
+                      interpret=interpret)
+    rows = _block_rows(sub, B)                 # (NBLK, B, 8)
     vals_new = rows[..., :V]
     den2 = rows[..., V]
 
@@ -653,11 +689,11 @@ def fused_repair(field, den, skip_mask, cells, values_sorted, grid, k: int,
                  mode: str, power: float, block: Tuple[int, int, int],
                  margin: float, max_panel: int = 8192, group: int = 8,
                  interpret: bool = False):
-    """Single-dispatch repair driver for the fused TPU path. Returns
+    """Single-dispatch repair driver for the fused kernel path. Returns
     ``(field', den', n_left)`` — ``n_left`` nodes remain uncovered at the
     widened margin (``den'`` marks the repaired ones nonzero so the caller
     can brute-force only the rest) — or ``None`` when the fast path is
-    ineligible (too many uncovered blocks for the panel budget, or a
+    ineligible (too many uncovered blocks for the survey, or a
     void-dominated cloud where per-block certification would fail anyway).
     Exactly two device syncs: the survey pull and the n_repaired pull —
     the panel eval, certification, and scatter live in one program."""
@@ -685,9 +721,8 @@ def fused_repair(field, den, skip_mask, cells, values_sorted, grid, k: int,
     axes2 = (_pad_axis(grid.x, bx), _pad_axis(grid.y, by),
              _pad_axis(grid.z, bz))
     axes2_np = tuple(np.asarray(a) for a in axes2)
-    C_raw = _block_total_capacity(cells, axes2_np, margin2, block, grid.shape,
-                                  mc2, ids=ids_np)
-    C = max((C_raw + 127) // 128 * 128, 128)
+    C = _panel_width(_block_total_capacity(cells, axes2_np, margin2, block,
+                                           grid.shape, mc2, ids=ids_np))
     if C > max_panel:
         return None
 
@@ -696,26 +731,22 @@ def fused_repair(field, den, skip_mask, cells, values_sorted, grid, k: int,
         [ids_np, np.broadcast_to(ids_np[-1:], (NBLK - n_bad,))])
     ids_dev = jnp.asarray(ids_pad, jnp.int32)
     V = field.shape[-1]
-    sz = _pick_sz(bz, by, bx)
     field2, den_out, n_rep = _fused_repair_apply(
         field, den, skip, cells, values_sorted, axes2, jnp.float32(margin2),
-        ids_dev, jnp.asarray(n_bad, jnp.int32), tuple(block), dims, sz,
-        int(k), V, C, mode, float(power), grid.shape, mc2, group,
-        interpret=interpret)
+        ids_dev, jnp.asarray(n_bad, jnp.int32), tuple(block), dims,
+        _query_tile(B), int(k), V, C, mode, float(power), grid.shape, mc2,
+        group, interpret=interpret)
     n_left = n_fix - int(n_rep)
     return field2, den_out, n_left
 
 
-@functools.partial(jax.jit, static_argnames=("block", "dims", "sz",
-                                             "grid_shape"))
-def _reassemble(out, block, dims, sz, grid_shape):
-    """(n_blocks, n_sub, 8, Bt) → (nz, ny, nx, 8) node order."""
+@functools.partial(jax.jit, static_argnames=("block", "dims", "grid_shape"))
+def _reassemble(out, block, dims, grid_shape):
+    """(n_blocks, n_sub, 8, tq) → (nz, ny, nx, 8) node order."""
     bz, by, bx = block
     nbz, nby, nbx = dims
     nz, ny, nx = grid_shape
-    n_sub = bz // sz
-    o = out.reshape(nbz, nby, nbx, n_sub, 8, sz, by, bx)
-    #              0    1    2    3      4  5   6   7
-    o = o.transpose(0, 3, 5, 1, 6, 2, 7, 4)
+    o = _block_rows(out, bz * by * bx).reshape(nbz, nby, nbx, bz, by, bx, 8)
+    o = o.transpose(0, 3, 1, 4, 2, 5, 6)
     o = o.reshape(nbz * bz, nby * by, nbx * bx, 8)
     return o[:nz, :ny, :nx]

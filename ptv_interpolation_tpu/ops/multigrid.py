@@ -91,9 +91,9 @@ def make_mg_preconditioner(mask, dx, dy, dz, n_smooth: int = 2,
     def smooth(x, b, lvl, sweeps):
         # fori_loop, not Python unrolling: the coarse level runs
         # ``coarse_iters`` (20) sweeps, and this whole V-cycle appears
-        # twice inside the PCG while_loop trace — unrolled sweeps were a
-        # major term in the ~10-minute 256³ cold remote compiles round 2
-        # recorded (warm wall unchanged; each sweep is HBM-bound either way)
+        # twice inside the PCG while_loop trace — unrolled sweeps inflate
+        # the program and its compile time (warm wall unchanged; each
+        # sweep is memory-bound either way)
         def body(_, xi):
             xi = xi + omega * (b - neg_lap(xi, lvl)) / diags[lvl]
             return xi * maskfs[lvl]

@@ -55,8 +55,7 @@ def _catmull_rom_3d(volume, coords):
     ``xq = clip(base_x + 2, 0, nx + 2)`` reproduces the per-tap
     ``clip(base_x + i - 1, 0, nx - 1)`` semantics exactly for every
     base, in- or out-of-volume (the replicated margin absorbs the
-    clamp). Outputs are (4, Q) with queries on lanes, so nothing pads to
-    the 128-lane tile."""
+    clamp). Outputs are (4, Q) with queries on the fast axis."""
     nz, ny, nx = volume.shape
     base = jnp.floor(coords)
     t = coords - base                                     # (3, Q)
@@ -68,10 +67,8 @@ def _catmull_rom_3d(volume, coords):
 
     # packed x-tap store, batch-minor: vol4t[i, (z·ny+y)·(nx+3)+xq] =
     # volp[z, y, xq+i]. One flat lane-take per (z, y) tap returns the
-    # four x-taps as (4, Q) with queries on lanes — the same proven
-    # pattern as the interpolation kernel's panel gather. (A lax.gather
-    # with slice_sizes=(1,1,4) expresses this without the 4× store, but
-    # that lowering crashes the TPU runtime at multi-M query counts.)
+    # four x-taps as (4, Q) with queries on the fast axis — the same
+    # pattern as the interpolation kernel's panel gather.
     volp = jnp.pad(volume, ((0, 0), (0, 0), (3, 3)), mode="edge")
     vol4t = jnp.stack([volp[:, :, i:i + nx + 3].reshape(-1)
                        for i in range(4)], axis=0)        # (4, nz·ny·(nx+3))

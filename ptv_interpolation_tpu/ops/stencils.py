@@ -2,7 +2,7 @@
 
 The reference assembles sparse matrices (COO Laplacian
 `/root/reference/physics.py:55-108`, divergence operators `:356-438`) only
-because scipy's solvers need explicit matrices. On TPU the same operators
+because scipy's solvers need explicit matrices. On the device the same operators
 are *functions*: fused shift/where stencils over the full grid, with the
 fluid mask carried as an array. Coefficient-for-coefficient parity with the
 reference assembly (including the subtle domain-edge Neumann terms) is

@@ -4,9 +4,9 @@ The framework's scaling axis is problem size (particles N × grid points M),
 parallelized SPMD-style: grid queries and z-slabs of fields are sharded
 over a 1D mesh, and the at-scale grid kernels shard the cell-sorted
 particle store by z-slab ownership + halo too (`parallel/slab_store.py`),
-so neither the grid nor the particle cloud is bounded by one chip's HBM.
-The generic query-sharded paths keep small particle sets replicated (1M
-tracks ≈ 24 MB — cheap against ICI all-gathers). This replaces the
+so neither the grid nor the particle cloud is bounded by one device's
+memory. The generic query-sharded paths keep small particle sets
+replicated (1M tracks ≈ 24 MB — one cheap broadcast). This replaces the
 reference's only parallelism, the fork-based process pool chunking RBF
 evaluation (`/root/reference/interpolator.py:173-182`).
 """
@@ -31,29 +31,26 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     arguments or environment.
 
     The reference is single-host (its only parallelism is a fork pool,
-    `/root/reference/interpolator.py:173-182`); the TPU-native distributed
-    backend is JAX's built-in one — GSPMD collectives ride ICI within a
-    slice and DCN across slices, with no NCCL/MPI analogue to manage. On
-    Cloud TPU pods `jax.distributed.initialize()` discovers everything from
-    the TPU environment, so all three arguments may be None; on other
-    clusters set them (or the standard ``JAX_COORDINATOR_ADDRESS`` /
-    ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID`` environment variables JAX
-    reads itself).
+    `/root/reference/interpolator.py:173-182`); the distributed backend
+    here is JAX's built-in one, whose GSPMD collectives XLA hands to NCCL.
+    Nothing discovers a cluster by itself: pass the coordinator address
+    (``host:port``), the process count and this process's id, or set the
+    ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
+    ``JAX_PROCESS_ID`` environment variables JAX reads itself.
 
     Call once per process, before :func:`make_mesh` — afterwards
-    ``jax.devices()`` spans the whole job and every mesh/pjit path in
-    ``parallel/`` works unchanged across hosts (shardings are laid out so
-    the z-slab halos and psums stay on ICI; only cross-slice traffic
-    touches DCN). Returns True if initialization ran, False if it was
-    already done or this is a plainly single-process environment.
+    ``jax.devices()`` spans the whole job and every mesh/jit path in
+    ``parallel/`` works unchanged across hosts. The 1-D mesh suits cards
+    joined all to all (NVLink within a host): every pair of devices
+    talks at the same rate, so the mesh follows the algorithm alone.
+    Returns True if initialization ran, False if it was already done or
+    this is a plainly single-process environment.
     """
     global _DISTRIBUTED_INITIALIZED
     if _DISTRIBUTED_INITIALIZED:
         return False
     import os
-    env_hints = any(k in os.environ for k in (
-        "JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS", "MEGASCALE_COORDINATOR_ADDRESS",
-        "TPU_WORKER_HOSTNAMES", "TPU_WORKER_ID"))
+    env_hints = "JAX_COORDINATOR_ADDRESS" in os.environ
     if coordinator_address is None and num_processes is None and not env_hints:
         return False  # single-process: nothing to do
     kwargs = {}

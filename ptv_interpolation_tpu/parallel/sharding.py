@@ -5,9 +5,9 @@ Three sharding patterns cover the whole framework:
 * **Query sharding** (generic kNN interpolation, filtering): grid points /
   particles are embarrassingly parallel over queries — ``shard_map`` runs
   the tiled neighbor+weights loop on each device's query shard with the
-  particle set replicated (small-problem path). This is the TPU equivalent
-  of the reference's process pool (`interpolator.py:173-182`), except the
-  "pickle+fork" is an ICI broadcast and the chunks are MXU tiles.
+  particle set replicated (small-problem path). This is the device
+  equivalent of the reference's process pool (`interpolator.py:173-182`),
+  except the "pickle+fork" is one broadcast to every device.
 
 * **Z-slab sharding of grid + candidate store** (the at-scale grid
   kernels, :func:`sharded_grid_interpolate`): the grid is cut into one
@@ -22,7 +22,7 @@ Three sharding patterns cover the whole framework:
   stencil operators (``jnp.roll`` + masked where) compile under ``jit``
   with GSPMD inserting one-voxel halo exchanges, and the CG dot products
   become ``psum`` collectives. No code changes to the solvers — the same
-  jitted functions run single-chip or on a pod depending on input
+  jitted functions run on one device or a mesh depending on input
   shardings.
 """
 
@@ -61,7 +61,7 @@ def _bcount(n: int, b: int) -> int:
 
 def _slab_repair(out8, surveys, store, cells, grid: Grid, z_slabs, x_ax,
                  y_ax, margin: float, block, dims_slab, slab_shape,
-                 nz_pad: int, z_pad, k: int, V: int, sz: int, method: str,
+                 nz_pad: int, z_pad, k: int, V: int, tq: int, method: str,
                  power: float, mesh: Mesh, axis_name: str, group: int,
                  interpret: bool, skip_slabs, store_specs, store_args,
                  _rebase, max_panel: int = 8192):
@@ -110,9 +110,9 @@ def _slab_repair(out8, surveys, store, cells, grid: Grid, z_slabs, x_ax,
     # widened-margin panel width over the FULL padded grid → one static C2
     # shared by every slab (a per-slab C2 would retrace per device count)
     axes2_np = (np.asarray(x_ax), np.asarray(y_ax), z_pad)
-    C_raw = fg._block_total_capacity(cells, axes2_np, margin2, tuple(block),
-                                     (nz_pad, grid.ny, grid.nx), mc2)
-    C2 = max((C_raw + 127) // 128 * 128, 128)
+    C2 = fg._panel_width(fg._block_total_capacity(
+        cells, axes2_np, margin2, tuple(block), (nz_pad, grid.ny, grid.nx),
+        mc2))
     if C2 > max_panel:
         return out8, n_fix_total
 
@@ -136,7 +136,7 @@ def _slab_repair(out8, surveys, store, cells, grid: Grid, z_slabs, x_ax,
         f2, d2, nrep = fg._fused_repair_apply(
             field, den, skip_l[0], cells_l, vs_l[0], axes2_l,
             jnp.float32(margin2), ids[0], nbad[0, 0], tuple(block),
-            dims_slab, sz, int(k), V, C2, method, float(power), slab_shape,
+            dims_slab, tq, int(k), V, C2, method, float(power), slab_shape,
             mc2, group, interpret=interpret)
         out_new = jnp.concatenate(
             [f2, d2[..., None], out8_l[0][..., V + 1:]], axis=-1)
@@ -236,12 +236,13 @@ def sharded_grid_interpolate(points, values, grid: Grid, mesh: Mesh,
     This is the multi-chip form of the headline 1M→256³ kernel — the
     memory-scaling axis SURVEY.md §2.2 prescribes. Returns (nz, ny, nx, V).
 
-    ``backend``: 'auto' (the fused two-phase kernel per slab on TPU with
-    ``tau_mode='bisect'``, the streaming XLA kernel elsewhere), 'fused',
+    ``backend``: 'auto' (the route of ``ops.kernels.select_kernels``:
+    the fused two-phase Triton kernel per slab on the GPU with
+    ``tau_mode='bisect'``, the streaming XLA kernel on the CPU), 'triton',
     or 'xla'. The panel width C is planned once on the host over the full
     padded grid, so every slab compiles the same static shapes.
-    ``interpret=True`` runs the Pallas stage in interpret mode (the
-    CPU-mesh parity tests).
+    ``interpret=True`` runs the Triton kernels in the Pallas interpreter
+    (the CPU-mesh parity tests).
     """
     from ptv_interpolation_tpu.interpolate.knn_weights import (
         _idw_panel_weights, _sibson_panel_weights)
@@ -257,9 +258,13 @@ def sharded_grid_interpolate(points, values, grid: Grid, mesh: Mesh,
     else:
         raise ValueError(f"sharded grid kernel supports idw/sibson, got {method!r}")
 
-    use_fused = backend == "fused" or (
+    from ptv_interpolation_tpu.ops.kernels import select_kernels
+
+    if backend not in ("auto", "triton", "xla"):
+        raise ValueError(f"unknown backend {backend!r}")
+    use_fused = backend == "triton" or (
         backend == "auto" and tau_mode == "bisect"
-        and (jax.default_backend() == "tpu" or interpret))
+        and select_kernels(interpret) == "triton")
 
     n_dev = mesh.devices.size
     bz = block[0]
@@ -305,14 +310,14 @@ def sharded_grid_interpolate(points, values, grid: Grid, mesh: Mesh,
         # panel width planned over the FULL padded grid → every slab
         # shares one static C (the max over all slabs' blocks)
         axes_np = (np.asarray(x_ax), np.asarray(y_ax), z_pad)
-        C = max((fg._block_total_capacity(
+        C = fg._panel_width(fg._block_total_capacity(
             cells, axes_np, margin, tuple(block),
-            (nz_pad, grid.ny, grid.nx), mc) + 127) // 128 * 128, 128)
+            (nz_pad, grid.ny, grid.nx), mc))
         V = values_sorted.shape[1]
-        sz = fg._pick_sz(*block)
+        tq = fg._query_tile(block[0] * block[1] * block[2])
         n_blocks_slab = dims_slab[0] * dims_slab[1] * dims_slab[2]
         nblk_cap = min(fg._NBLK_MAX, n_blocks_slab)
-        m2 = jnp.asarray([[margin * margin]], jnp.float32)
+        m2 = jnp.asarray([margin * margin], jnp.float32)
 
         # survey skip: the caller's skip mask plus the padded z rows (they
         # are sliced away after recombination — repairing them would flood
@@ -327,18 +332,17 @@ def sharded_grid_interpolate(points, values, grid: Grid, mesh: Mesh,
         def local(starts_g, origin, inv_c, ps_l, vs_l, row0, n_loc, m2_l,
                   x_l, y_l, z_slab, skip_l):
             cells_l = _rebase(starts_g, origin, inv_c, ps_l, row0, n_loc)
-            pts8_l = fg._build_pts8_t(cells_l.points_sorted, vs_l[0])
+            pts8_l = fg._build_pts8(cells_l.points_sorted, vs_l[0])
             axes_l = (x_l, y_l, z_slab[0])
             cand = fg._compact_gather(
                 cells_l, None, axes_l, jnp.float32(margin), tuple(block),
-                slab_shape, mc, C, group, pts8_t=pts8_l)
+                slab_shape, mc, C, group, pts8=pts8_l)
             qx, qy, qz = fg._build_queries(axes_l, tuple(block), dims_slab,
-                                           sz)
+                                           tq)
             out = fg._fused_eval(m2_l, cand, qx, qy, qz, tuple(block),
-                                 dims_slab, sz, int(k), V, C, method,
-                                 float(power), interpret=interpret)
-            out = fg._reassemble(out, tuple(block), dims_slab, sz,
-                                 slab_shape)
+                                 int(k), V, C, method, float(power),
+                                 interpret=interpret)
+            out = fg._reassemble(out, tuple(block), dims_slab, slab_shape)
             survey = fg._repair_survey(out[..., V], skip_l[0], tuple(block),
                                        dims_slab, nblk_cap)
             return out[None], survey[None]       # (1, slab, ny, nx, 8)
@@ -352,7 +356,7 @@ def sharded_grid_interpolate(points, values, grid: Grid, mesh: Mesh,
                                     skip_slabs)
         out8, n_left = _slab_repair(
             out8, surveys, store, cells, grid, z_slabs, x_ax, y_ax, margin,
-            tuple(block), dims_slab, slab_shape, nz_pad, z_pad, k, V, sz,
+            tuple(block), dims_slab, slab_shape, nz_pad, z_pad, k, V, tq,
             method, float(power), mesh, axis_name, group, interpret,
             skip_slabs, store_specs, store_args, _rebase)
         out8 = out8.reshape(nz_pad, grid.ny, grid.nx, 8)[: grid.nz]

@@ -1,7 +1,7 @@
 """Memory-level sharding of the CSR candidate store by z-slab ownership.
 
 SURVEY.md §2.2 prescribes "particles sharded by tile ownership with halo
-exchange over ICI" as the TPU equivalent of the reference's only parallel
+exchange" as the multi-device equivalent of the reference's only parallel
 path (`/root/reference/interpolator.py:173-182`). Replicating the particle
 store caps the framework at one chip's HBM; this module removes that cap
 for the block-centric grid kernels:

@@ -15,18 +15,42 @@ import time
 from typing import Dict, Optional
 
 
-def enable_compilation_cache(path: str | None = None) -> None:
-    """Point JAX's persistent compilation cache at ``path`` (default
-    ``$JAX_COMPILATION_CACHE_DIR`` or ``~/.jax_cache``).
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-    Called by every CLI entry point: on TPU rigs where compilation goes
-    through a remote compile service, a cold 256³ program costs minutes —
-    the cache turns every later invocation (a new process per CLI run)
-    into a disk load. Safe to call repeatedly."""
+
+def compilation_cache_dir() -> str:
+    """``$JAX_COMPILATION_CACHE_DIR`` when set, else ``<checkout>/.jax_cache``
+    — a fixed path, because the path is part of the cache's key: a cache
+    that moves between runs never hits."""
+    return (os.environ.get("JAX_COMPILATION_CACHE_DIR")
+            or os.path.join(_CHECKOUT, ".jax_cache"))
+
+
+def enable_compilation_cache() -> str:
+    """Point JAX's persistent compilation cache at
+    :func:`compilation_cache_dir` and return that path.
+
+    Called by every CLI entry point and benchmark: each CLI run is a new
+    process, and the cache turns its compiles into disk loads. Safe to call
+    repeatedly."""
     import jax
-    path = (path or os.environ.get("JAX_COMPILATION_CACHE_DIR")
-            or os.path.expanduser("~/.jax_cache"))
+    path = compilation_cache_dir()
     jax.config.update("jax_compilation_cache_dir", path)
+    return path
+
+
+def device_stamp(require: str | None = "gpu") -> dict:
+    """``{"platform", "kind", "count"}`` of the default JAX devices, as a
+    measurement must report them. With ``require`` (default ``"gpu"``) a
+    different platform is an error: a timing taken on another device says
+    nothing about this one, so there is no fallback."""
+    import jax
+    devs = jax.devices()
+    stamp = {"platform": devs[0].platform, "kind": devs[0].device_kind,
+             "count": len(devs)}
+    if require is not None and stamp["platform"] != require:
+        raise RuntimeError(f"needs a {require} device; JAX found {stamp}")
+    return stamp
 
 
 class StageTimings:

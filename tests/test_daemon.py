@@ -1,8 +1,8 @@
 """Serving daemon: warm-process dispatch for the CLIs.
 
-The reference is a one-shot script with no compile step; our TPU pipeline
-pays a fresh-process warm-up per invocation (imports, PJRT handshake,
-trace + executable load), so the framework ships a resident server
+The reference is a one-shot script with no compile step; our pipeline
+pays a fresh-process warm-up per invocation (imports, device init,
+tracing + compilation), so the framework ships a resident server
 (`ptv_interpolation_tpu/daemon.py`) that the CLIs opt into with
 ``--daemon`` / ``PTV_DAEMON=1``. These tests run the real server as a
 subprocess on the CPU backend."""
@@ -90,3 +90,48 @@ def test_cli_daemon_flag_falls_back_inline(dataset, tmp_path, monkeypatch):
                    "--no-plot", "--daemon"])
     assert rc in (0, None)
     assert os.path.exists(npz)
+
+
+def test_spawn_kills_a_server_that_never_answers(tmp_path, monkeypatch):
+    """A spawned server that misses the start deadline is killed, so it
+    cannot take the device while the CLI falls back to running inline."""
+    import subprocess
+
+    procs = []
+    real_popen = subprocess.Popen
+
+    def popen(*a, **k):
+        p = real_popen([sys.executable, "-c", "import time; time.sleep(60)"],
+                       stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+        procs.append(p)
+        return p
+
+    monkeypatch.setattr(subprocess, "Popen", popen)
+    path = str(tmp_path / "daemon.sock")
+    assert daemon._spawn(path, wait_s=0.3) is False
+    assert len(procs) == 1
+    assert procs[0].poll() is not None, "slow server left running"
+
+
+def test_cli_refuses_inline_while_daemon_holds_device(dataset, tmp_path,
+                                                      monkeypatch, capsys):
+    """With a live server recorded beside the socket, the CLIs refuse to
+    open the device a second time in-process."""
+    d, csv, tif = dataset
+    sock_dir = tmp_path / "held"
+    sock_dir.mkdir()
+    monkeypatch.setenv("PTV_DAEMON_DIR", str(sock_dir))
+    monkeypatch.delenv("PTV_DAEMON", raising=False)
+    (sock_dir / "daemon.sock.pid").write_text(str(os.getpid()))
+    assert daemon.holder_pid() == os.getpid()
+    from ptv_interpolation_tpu.cli.analyze_flow import main as analyze_main
+    from ptv_interpolation_tpu.cli.main import main as cli_main
+    npz = str(d / "refused.npz")
+    rc = cli_main(["--input", csv, "--mask", tif, "--invert-mask",
+                   "--method", "nearest", "--output-npz", npz, "--no-plot"])
+    assert rc == 1 and not os.path.exists(npz)
+    assert analyze_main(["--input", npz, "--no-interactive"]) == 1
+    assert "holds the device" in capsys.readouterr().err
+    # a stale record (dead pid) does not block
+    (sock_dir / "daemon.sock.pid").write_text("999999999")
+    assert daemon.holder_pid() is None

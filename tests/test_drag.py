@@ -285,7 +285,7 @@ def test_marching_tetrahedra_device_matches_host():
     dev = marching_tetrahedra_device(vol, level=0.5)
     assert dev.shape == host.shape
     # set comparison at 3-decimal rounding: the device path interpolates
-    # crossings in f32 (TPU) vs the host's f64, so a razor-thin fraction
+    # crossings in f32 (device) vs the host's f64, so a razor-thin fraction
     # of vertices rounds differently (22/6936 at this fixture)
     hs = set(map(tuple, np.round(host.reshape(-1, 9), 3).tolist()))
     ds = set(map(tuple, np.round(dev.reshape(-1, 9), 3).tolist()))

@@ -1,5 +1,5 @@
 """Parity tests for the fused two-phase grid kernel (XLA compact gather +
-Pallas VMEM τ-bisect) against the exact gather-based oracle and the
+streaming Triton τ-bisect) against the exact gather-based oracle and the
 streaming XLA τ-threshold path. Runs in Pallas interpret mode on CPU."""
 
 import numpy as np
@@ -124,11 +124,10 @@ def test_fused_skip_mask_skips_repair():
 
 def test_auto_backend_falls_back_on_clustered_cloud(monkeypatch):
     """backend='auto' must degrade to the streaming path when the
-    compacted panel exceeds the VMEM budget (FusedCapacityError), and
-    backend='fused' must surface the error."""
-    import jax
-
+    compacted panel exceeds its capacity bound (FusedCapacityError), and
+    backend='triton' must surface the error."""
     from ptv_interpolation_tpu.ops import fused_grid_knn as fg
+    from ptv_interpolation_tpu.ops import grid_knn as gk
     from ptv_interpolation_tpu.ops.grid_knn import grid_weighted_interpolate
     from ptv_interpolation_tpu.interpolate.knn_weights import (
         _sibson_panel_weights)
@@ -139,10 +138,11 @@ def test_auto_backend_falls_back_on_clustered_cloud(monkeypatch):
         fg.fused_grid_weighted_interpolate(pts, vals, grid, 8,
                                            mode="sibson", max_panel=1)
 
-    # auto route: spoof a TPU backend, make the fused attempt refuse, and
-    # keep the repair stage off its (Pallas) TPU path — the call must
-    # degrade to the streaming kernel and still produce a finite field
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    # auto route: make the selection point pick the Triton kernels, make
+    # the fused attempt refuse, and keep the repair stage off its kernel
+    # path — the call must degrade to the streaming kernel and still
+    # produce a finite field
+    monkeypatch.setattr(gk, "select_kernels", lambda interpret=False: "triton")
 
     def refuse(*a, **k):
         raise fg.FusedCapacityError("forced")
@@ -163,7 +163,7 @@ def test_fused_backend_rejects_custom_weight_fn():
     with pytest.raises(ValueError, match="custom weight_fn"):
         grid_weighted_interpolate(pts, vals, grid, 8,
                                   lambda d, m, s: 1.0 / (d + 1e-6),
-                                  mode="sibson", backend="fused")
+                                  mode="sibson", backend="triton")
 
 
 def test_fused_clustered_cloud_matches_oracle():
@@ -219,7 +219,7 @@ def test_single_dispatch_repair_matches_legacy_ladder():
     from ptv_interpolation_tpu.ops import grid_knn as gk
     from ptv_interpolation_tpu.ops.fused_grid_knn import (
         _block_total_capacity, _build_queries, _compact_gather,
-        _fused_eval, _pick_sz, _reassemble, fused_repair)
+        _fused_eval, _panel_width, _query_tile, _reassemble, fused_repair)
 
     rng = np.random.default_rng(21)
     n = 24
@@ -234,17 +234,17 @@ def test_single_dispatch_repair_matches_legacy_ladder():
                            cell_divisor=3.0)
     (cells, values_sorted, axes, margin, mc, _row_len, values_dev) = setup
     axes_np = tuple(np.asarray(a) for a in axes)
-    C = max((_block_total_capacity(cells, axes_np, margin, block, grid.shape,
-                                   mc) + 127) // 128 * 128, 128)
+    C = _panel_width(_block_total_capacity(cells, axes_np, margin, block,
+                                           grid.shape, mc))
     dims = tuple((s + b - 1) // b for s, b in zip(grid.shape, block))
-    sz = _pick_sz(*block)
+    tq = _query_tile(block[0] * block[1] * block[2])
     cand = _compact_gather(cells, values_sorted, axes, jnp.float32(margin),
                            block, grid.shape, mc, C, 8)
-    m2 = jnp.asarray([[margin * margin]], jnp.float32)
-    qx, qy, qz = _build_queries(axes, block, dims, sz)
-    out = _fused_eval(m2, cand, qx, qy, qz, block, dims, sz, k,
-                      vals.shape[1], C, "sibson", 2.0, interpret=True)
-    out = _reassemble(out, block, dims, sz, grid.shape)
+    m2 = jnp.asarray([margin * margin], jnp.float32)
+    qx, qy, qz = _build_queries(axes, block, dims, tq)
+    out = _fused_eval(m2, cand, qx, qy, qz, block, k, vals.shape[1], C,
+                      "sibson", 2.0, interpret=True)
+    out = _reassemble(out, block, dims, grid.shape)
     field, den = out[..., :3], out[..., 3]
     n_uncovered = int((np.asarray(den) == 0).sum())
     assert n_uncovered > 50, "fixture must exercise repair"

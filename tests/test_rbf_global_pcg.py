@@ -1,6 +1,6 @@
 """Matrix-free projected-PCG global RBF (large-N path).
 
-TPU-native equivalent of ``scipy.interpolate.RBFInterpolator`` with
+Device equivalent of ``scipy.interpolate.RBFInterpolator`` with
 ``neighbors=None`` (/root/reference/interpolator.py:162-167) beyond the
 dense-Cholesky capacity. Parity target: the dense path (which is itself
 parity-tested vs scipy in test_interpolate.py)."""

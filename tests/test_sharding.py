@@ -136,10 +136,7 @@ def test_initialize_distributed_noop_single_process(monkeypatch):
 
     from ptv_interpolation_tpu.parallel import mesh as mesh_mod
 
-    for k in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
-              "MEGASCALE_COORDINATOR_ADDRESS", "TPU_WORKER_HOSTNAMES",
-              "TPU_WORKER_ID"):
-        monkeypatch.delenv(k, raising=False)
+    monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
     calls = []
     monkeypatch.setattr(jax.distributed, "initialize",
                         lambda **kw: calls.append(kw))
@@ -159,9 +156,9 @@ def test_initialize_distributed_noop_single_process(monkeypatch):
 
 
 def test_sharded_fused_kernel_matches_single_device(problem):
-    """The fused (Pallas) slab path inside shard_map — interpret mode on
+    """The fused (Triton) slab path inside shard_map — interpret mode on
     the CPU mesh — must match the single-chip streaming kernel. This is
-    the multi-chip form of the headline kernel; on real TPU meshes
+    the multi-device form of the headline kernel; on GPU meshes
     backend='auto' selects it."""
     from ptv_interpolation_tpu.grid import create_grid
     from ptv_interpolation_tpu.interpolate.knn_weights import (
@@ -173,7 +170,7 @@ def test_sharded_fused_kernel_matches_single_device(problem):
     mesh = make_mesh(8)
     got = np.asarray(sharded_grid_interpolate(
         points, values, grid, mesh, method="sibson", k=12, block=(2, 8, 8),
-        backend="fused", interpret=True))
+        backend="triton", interpret=True))
     want = np.asarray(sibson_grid_interpolate(
         points, values, grid, k=12, block=(2, 8, 8)))
     close = np.isclose(got, want, rtol=1e-3, atol=1e-4)
@@ -183,7 +180,7 @@ def test_sharded_fused_kernel_matches_single_device(problem):
 def test_slab_store_shards_memory():
     """The candidate store is genuinely sharded by z-slab ownership: each
     device's window holds ≈ total/n_dev + halo rows, not the full cloud
-    (VERDICT r4 missing #1 — the store used to be replicated)."""
+    (the store used to be replicated)."""
     from ptv_interpolation_tpu.ops.grid_knn import _host_setup
     from ptv_interpolation_tpu.parallel.slab_store import build_slab_store
 
@@ -232,7 +229,7 @@ def test_sharded_fused_void_region_matches_single_device():
     mesh = make_mesh(8)
     got = np.asarray(sharded_grid_interpolate(
         points, values, grid, mesh, method="sibson", k=12, block=(2, 8, 8),
-        backend="fused", interpret=True))
+        backend="triton", interpret=True))
     want = np.asarray(sibson_grid_interpolate(
         points, values, grid, k=12, block=(2, 8, 8)))
     assert np.isfinite(got).all()
@@ -244,7 +241,7 @@ def test_sharded_fused_void_region_matches_single_device():
 def test_checkpoint_sharded_restore(tmp_path):
     """`io/checkpoint.load_checkpoint(shardings=...)` must place restored
     3D fields directly onto the mesh sharding without a host gather
-    (VERDICT r3 gap: only the plain roundtrip was covered)."""
+    (not only the plain roundtrip)."""
     pytest.importorskip("orbax.checkpoint")
     from jax.sharding import NamedSharding, PartitionSpec as P
 

@@ -1,4 +1,4 @@
-"""8-device 128³ / 500k-point sharded-store parity run (VERDICT r4 task 1).
+"""8-device 128³ / 500k-point sharded-store parity run.
 
 Production-shape evidence that the z-slab-sharded candidate store matches
 the single-chip kernel bit-for-bit where covered and through the shared
@@ -9,8 +9,6 @@ Heavy: several minutes of single-core CPU (the streaming kernel runs twice
 over 2M queries × 500k points), so gated behind ``PTV_BIG_PARITY=1``:
 
     PTV_BIG_PARITY=1 python -m pytest tests/test_sharding_big.py -s
-
-The measured run is recorded in BASELINE.md §multi-chip.
 """
 
 import os

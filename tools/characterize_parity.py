@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Characterize the headline divergence-parity gap (VERDICT r1 item 2).
+"""Characterize the headline divergence-parity gap.
 
 Decomposes the bench's 64³-subvolume mean-|div| relative error into:
   * the f32 floor — exact KDTree k-set, weight math replayed in f32 vs the
@@ -7,8 +7,7 @@ Decomposes the bench's 64³-subvolume mean-|div| relative error into:
   * the approx-selection term — the block kernel at recall_target 0.9 /
     0.95 / 0.99 and with exact τ (true k-th distance), each vs the f64
     reference;
-and records the 256³ wall-clock cost of each config so the default can be
-picked as "tightest parity that keeps ≥10× over the 217.9 s scipy path".
+and records the 256³ wall-clock cost of each config beside its parity.
 
 Reference math: /root/reference/interpolator.py:83-124 (sibson) +
 /root/reference/physics.py:6-53 (FV divergence used by the metric).
@@ -27,7 +26,6 @@ GRID_N = 256
 N_POINTS = 1_000_000
 K = 50
 SUB = slice(96, 160)
-REFERENCE_SECONDS = 217.9
 
 
 def log(msg):
@@ -70,11 +68,9 @@ def div_err(field, ref_field, consistent_divergence):
 
 
 def main():
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                          os.path.expanduser("~/.jax_bench_cache"))
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
+    from ptv_interpolation_tpu.utils import enable_compilation_cache
+    enable_compilation_cache()
 
     from ptv_interpolation_tpu.grid import create_grid
     from ptv_interpolation_tpu.interpolate.knn_weights import (
@@ -155,11 +151,9 @@ def main():
         de = div_err(o[SUB, SUB, SUB], ref64, consistent_divergence)
         l2 = float(np.linalg.norm(o[iz, iy, ix] - l2_ref)
                    / np.linalg.norm(l2_ref))
-        x = REFERENCE_SECONDS / wall
         rows.append(dict(config=name.strip(), wall_s=round(wall, 2),
-                         speedup=round(x, 1), l2=l2, div=de))
-        log(f"{name}  wall={wall:6.2f}s ({x:5.1f}x)  L2={l2:.2e}  "
-            f"div={de:.4f}")
+                         l2=l2, div=de))
+        log(f"{name}  wall={wall:6.2f}s  L2={l2:.2e}  div={de:.4f}")
 
     print(json.dumps({"f32_floor_div": floor, "f32_floor_l2": l2_floor,
                       "configs": rows}))

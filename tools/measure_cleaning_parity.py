@@ -1,6 +1,5 @@
 #!/usr/bin/env python
-"""At-scale variational-cleaning parity vs the reference solver (VERDICT
-round-2 item 5): at 128³ on the porous scenario-4 problem, run
+"""At-scale variational-cleaning parity vs the reference solver: at 128³ on the porous scenario-4 problem, run
 
 * the reference's own operator-assembled solve (sparse
   `build_divergence_operators` + bmat CG, `/root/reference/physics.py:
@@ -23,15 +22,13 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.jax_bench_cache"))
 
 
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
+    from ptv_interpolation_tpu.utils import enable_compilation_cache
+    enable_compilation_cache()
     from benchmarks.scenarios import porous_problem
     from ptv_interpolation_tpu.grid import create_grid
     from ptv_interpolation_tpu.interpolate.knn_weights import (

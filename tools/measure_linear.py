@@ -19,12 +19,10 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.jax_bench_cache"))
 import jax  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ["JAX_COMPILATION_CACHE_DIR"])
+from ptv_interpolation_tpu.utils import enable_compilation_cache
+enable_compilation_cache()
 
 
 def main():

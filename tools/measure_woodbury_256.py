@@ -1,10 +1,10 @@
 #!/usr/bin/env python
-"""256³ Woodbury variational solve on the real chip (VERDICT r4 task 3).
+"""256³ Woodbury variational solve on one GPU.
 
 Confirms the batched 8-sublattice parity-MG V-cycle compiles and converges
 at production budget (λ=200, tol=1e-8, the reference's CG budget at
-`/root/reference/physics.py:485`) at the headline grid size, and records
-compile + solve walls for BASELINE.md. The field is the scenario-5-style
+`/root/reference/physics.py:485`) at the headline grid size, and prints
+the compile + solve walls. The field is the scenario-5-style
 porous problem (gyroid mask + smooth analytic velocity with deliberate
 divergence).
 """
@@ -17,8 +17,6 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.jax_bench_cache"))
 
 
 def make_field(n):
@@ -35,8 +33,8 @@ def make_field(n):
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
+    from ptv_interpolation_tpu.utils import enable_compilation_cache
+    enable_compilation_cache()
     from ptv_interpolation_tpu.ops.stencils import consistent_divergence
     from ptv_interpolation_tpu.physics import clean_divergence_variational
 

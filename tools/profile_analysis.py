@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Profile the full analysis pipeline at 256³ (VERDICT r1 item 4).
+"""Profile the full analysis pipeline at 256³.
 
 Builds the scenario-5 porous field shape (gyroid mask + smooth analytic
 velocity, no interpolation — only the analysis is profiled), runs
@@ -30,11 +30,9 @@ def make_field(n=256):
 
 
 def main():
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                          os.path.expanduser("~/.jax_bench_cache"))
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
+    from ptv_interpolation_tpu.utils import enable_compilation_cache
+    enable_compilation_cache()
 
     from ptv_interpolation_tpu.analyze import AnalyzeConfig, run_analysis
     from ptv_interpolation_tpu.io.npz import FieldResult

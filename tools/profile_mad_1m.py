@@ -21,7 +21,8 @@ import numpy as np
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
+from ptv_interpolation_tpu.utils import enable_compilation_cache
+enable_compilation_cache()
 
 
 def main(n_points=1_000_000, grid_n=256):
