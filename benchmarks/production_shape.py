@@ -7,8 +7,10 @@ a 657×657×656 scan cropped to 322×337×486 and downscaled 2× → a
 k=30/thr 4/vmax 5, boundary particles stride 50/thickness 2, sibson
 k=50, variational cleaning λ=200). The reference runs this on a
 workstation via scipy + a 4-process pool; this script runs the same
-configuration on one GPU over a synthetic porous problem of the
-same shape and density and prints one JSON line with the stage walls.
+configuration through the pipeline on one GPU, over the synthetic
+production problem of ``datasets/porous_crop.py`` (the one
+``chip_smoke.py`` feeds the CLI), and prints one JSON line with the
+stage walls of the second (warm) run.
 """
 
 import json
@@ -18,95 +20,42 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import numpy as np
-
-
 
 def main():
-    import jax
-
-    from ptv_interpolation_tpu.utils import enable_compilation_cache
+    from ptv_interpolation_tpu.utils import (StageTimings, device_stamp,
+                                             enable_compilation_cache)
     enable_compilation_cache()
-    from ptv_interpolation_tpu.utils import device_stamp
     device = device_stamp("gpu")
-    from ptv_interpolation_tpu.filtering import FilterConfig, apply_filters
-    from ptv_interpolation_tpu.grid import (
-        create_grid, extract_boundary_particles, sample_mask_on_grid)
-    from ptv_interpolation_tpu.interpolate.knn_weights import (
-        sibson_grid_interpolate)
+    from ptv_interpolation_tpu.datasets import porous_crop
     from ptv_interpolation_tpu.io.csvio import PointCloud
-    from ptv_interpolation_tpu.physics import clean_divergence_variational
+    from ptv_interpolation_tpu.pipeline import PipelineConfig, run_pipeline
 
-    nz, ny, nx = 243, 168, 161          # the production grid (z, y, x)
-    rng = np.random.default_rng(0)
-    az = np.arange(nz) - nz / 2
-    ay = np.arange(ny) - ny / 2
-    ax = np.arange(nx) - nx / 2
-    Z, Y, X = np.meshgrid(az, ay, ax, indexing="ij")
-    solid = (np.sin(X * 0.11) * np.sin(Y * 0.14) * np.sin(Z * 0.08)) > 0.55
-    fluid = ~solid
-
-    # ~0.1 tracks/voxel (1M tracks in a 657³ scan ≈ the production seeding
-    # after the 2× downscale maps 8 voxels onto 1)
-    n_pts = 650_000
-    pts = rng.uniform((0, 0, 0), (nx, ny, nz),
-                      size=(int(n_pts * 1.3), 3)).astype(np.float32)
-    idx = np.clip(pts.astype(int), 0, (nx - 1, ny - 1, nz - 1))
-    keep = fluid[idx[:, 2], idx[:, 1], idx[:, 0]]
-    pts = pts[keep][:n_pts]
-    vals = np.stack([
-        0.05 * np.sin(pts[:, 0] * 0.05),
-        0.05 * np.cos(pts[:, 1] * 0.04),
-        1.0 + 0.1 * np.sin(pts[:, 2] * 0.03),
-    ], axis=-1).astype(np.float32)
-
-    grid = create_grid(((0, nx + 1), (0, ny + 1), (0, nz + 1)),
-                       (nx, ny, nz))
-    maskf = fluid.astype(np.float32)
-
-    cfg = FilterConfig(filter_outliers=True, filter_neighbors=30,
-                       filter_threshold=4.0, filter_max_speed=5.0)
-    apply_filters(PointCloud(pts, vals), cfg, verbose=False)   # warmup
-    t0 = time.time()
-    cloud = apply_filters(PointCloud(pts, vals), cfg, verbose=False)
-    t_filter = time.time() - t0
-
-    bx, by, bz = extract_boundary_particles(fluid, grid.bounds,
-                                            sampling_step=50, thickness=2)
-    bpts = np.stack([bx, by, bz], axis=-1).astype(np.float32)
-    all_pts = np.concatenate([np.asarray(cloud.points), bpts])
-    all_vals = np.concatenate([np.asarray(cloud.values),
-                               np.zeros((len(bpts), 3), np.float32)])
+    pts, vals, fluid, _ = porous_crop.generate()
+    # examples/porous_glass.py's flags; the mask is generated already
+    # cropped to the production crop
+    cfg = PipelineConfig(
+        method="sibson", downscale=2, sibson_neighbors=50,
+        divergence_free=True, cleaning_method="variational",
+        cleaning_lambda=200.0, boundary_particles=True, boundary_sampling=50,
+        boundary_thickness=2, filter_outliers=True, filter_neighbors=30,
+        filter_threshold=4.0, filter_max_speed=5.0, verbose=False)
 
     def run():
-        out = sibson_grid_interpolate(all_pts, all_vals, grid, k=50,
-                                      skip_mask=~fluid)
-        u = out[..., 0] * maskf
-        v = out[..., 1] * maskf
-        w = out[..., 2] * maskf
-        m = sample_mask_on_grid(fluid, grid)
-        res = clean_divergence_variational(u * m, v * m, w * m, fluid,
-                                           *grid.spacing, lambda_reg=200.0,
-                                           tol=1e-8, maxiter=2000)
-        return res
+        timings = StageTimings()
+        t0 = time.perf_counter()
+        res = run_pipeline(cfg, cloud=PointCloud(pts, vals), mask_raw=fluid,
+                           timings=timings)
+        return res, timings, time.perf_counter() - t0
 
-    res = run()                                     # compile + warm
-    jax.block_until_ready((res.u, res.v, res.w))
-    t0 = time.time()
-    res = run()
-    jax.block_until_ready((res.u, res.v, res.w))
-    wall = time.time() - t0
+    run()                                           # compile + warm
+    res, timings, wall = run()
 
     print(json.dumps({
         "scenario": "production_shape_161x168x243",
-        "value": float(f"{wall:.4g}"), "unit": "s",
-        "filter_s": round(t_filter, 3),
-        "n_tracks": int(len(all_pts)),
-        "boundary_particles": int(len(bpts)),
-        "cg_iterations": int(res.cg_iterations),
-        "converged": bool(res.converged),
-        "div_reduction_x": round(float(res.mean_abs_div_initial
-                                       / res.mean_abs_div_final), 2),
+        "value": wall, "unit": "s",
+        "stages_s": timings.stages,
+        "n_tracks": int(len(pts)),
+        "grid": list(res.u.shape),
         "device": device,
     }), flush=True)
 

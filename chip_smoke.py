@@ -384,6 +384,9 @@ def phase_multi(n_dev):
     single, t1 = timed(lambda: sibson_grid_interpolate(
         pts, vals, grid, k=K, tau_mode="bisect"))
     say("1M->256^3 sibson single device s (compile incl.)", f"{t1:.3f}")
+    _, t1_warm = timed(lambda: sibson_grid_interpolate(
+        pts, vals, grid, k=K, tau_mode="bisect"))
+    say("1M->256^3 sibson single device warm s", f"{t1_warm:.3f}")
     sharded, tn = timed(lambda: sharded_grid_interpolate(
         pts, vals, grid, mesh, method="sibson", k=K))
     say(f"1M->256^3 sibson z-slab sharded over {n_dev} GPUs s "
@@ -407,20 +410,46 @@ def phase_multi(n_dev):
     rng = np.random.default_rng(3)
     u, v, w = (np.where(fluid, rng.normal(0, 0.1, fluid.shape) + c, 0.0)
                .astype(np.float32) for c in (0.0, 0.0, 1.0))
-    ref = clean_divergence_variational(u, v, w, fluid, *g.spacing,
-                                       lambda_reg=200.0)
     um, vm, wm, mm = shard_fields(mesh, u, v, w, fluid)
-    res = clean_divergence_variational(um, vm, wm, mm, *g.spacing,
-                                       lambda_reg=200.0)
+    solves = {}
+    for name, args in (("single device", (u, v, w, fluid)),
+                       (f"sharded over {n_dev} GPUs", (um, vm, wm, mm))):
+        solves[name], t_first = timed(lambda: clean_divergence_variational(
+            *args, *g.spacing, lambda_reg=200.0))
+        _, t_warm = timed(lambda: clean_divergence_variational(
+            *args, *g.spacing, lambda_reg=200.0))
+        say(f"variational {n}^3 {name} s (compile incl.)", f"{t_first:.3f}")
+        say(f"variational {n}^3 {name} warm s", f"{t_warm:.3f}")
+    ref, res = solves.values()
     say("variational solve sharded CG iterations / single",
         f"{int(res.cg_iterations)} / {int(ref.cg_iterations)}")
-    dv = max(max_rel(res.u, ref.u), max_rel(res.v, ref.v),
-             max_rel(res.w, ref.w))
-    say("variational sharded vs single-device max relative difference",
-        f"{dv:.3e}")
     check(bool(res.converged) and bool(ref.converged), "CG converged")
-    # f32 CG whose reductions run in another order across devices
-    check(dv <= 1e-5, f"sharded variational differs by {dv:.3e}")
+
+    def field(r):
+        return np.stack([np.asarray(a, np.float64) for a in (r.u, r.v, r.w)])
+
+    def rel_l2(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    # the sharded f32 CG sums in another order, so single voxels differ by
+    # a few f32 ulps. The same problem mirrored in z (w negated) is the
+    # same arithmetic in another order on one device: its spread is the
+    # floor the sharded solve is read against.
+    def flip(a):
+        return np.ascontiguousarray(np.asarray(a)[::-1])
+
+    mir = clean_divergence_variational(flip(u), flip(v), -flip(w),
+                                       flip(fluid), *g.spacing,
+                                       lambda_reg=200.0)
+    mir = mir._replace(u=flip(mir.u), v=flip(mir.v), w=-flip(mir.w))
+    for name, a in (("sharded", res), ("z-mirrored single-device", mir)):
+        per = " ".join(f"{c} {max_rel(getattr(a, c), getattr(ref, c)):.3e}"
+                       for c in "uvw")
+        say(f"variational {name} vs single device max relative difference "
+            f"per component", per)
+    dv = rel_l2(field(res), field(ref))
+    say("variational sharded vs single-device relative L2", f"{dv:.3e}")
+    check(dv <= 1e-6, f"sharded variational differs by {dv:.3e}")
 
 
 def main(argv=None):

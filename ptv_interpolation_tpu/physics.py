@@ -73,8 +73,12 @@ def mid_plane_flux(u, dy, dz):
 # Projection cleaning
 # ---------------------------------------------------------------------------
 
-@functools.partial(jax.jit, static_argnames=("iterations", "maxiter",
-                                             "precond"))
+# Grid spacings and solver constants are static: they fold into the
+# program as constants, and a call on z-slab-sharded fields then runs as
+# one program whose only parameters are the fields. With them as traced
+# scalar arguments the sharded variational solve stalled on four H100s.
+@functools.partial(jax.jit, static_argnames=("dx", "dy", "dz", "iterations",
+                                             "tol", "maxiter", "precond"))
 def clean_divergence_projection(u, v, w, mask, dx, dy, dz, iterations: int = 3,
                                 tol: float = 1e-8, maxiter: int = 1000,
                                 precond: str = "mg") -> CleanResult:
@@ -136,7 +140,8 @@ def clean_divergence_projection(u, v, w, mask, dx, dy, dz, iterations: int = 3,
 # Variational cleaning
 # ---------------------------------------------------------------------------
 
-@functools.partial(jax.jit, static_argnames=("maxiter", "solver"))
+@functools.partial(jax.jit, static_argnames=("dx", "dy", "dz", "lambda_reg",
+                                             "tol", "maxiter", "solver"))
 def clean_divergence_variational(u, v, w, mask, dx, dy, dz,
                                  lambda_reg: float = 1e3, tol: float = 1e-8,
                                  maxiter: int = 2000,
